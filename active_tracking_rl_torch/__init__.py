@@ -1,0 +1,21 @@
+"""active_tracking_rl_torch — the PyTorch/CUDA port of active_tracking_rl_tpu.
+
+The package mirrors the JAX package's layout (``envs/ models/ ops/ rl/``):
+each module's reference is the JAX module of the same name. It imports torch
+and numpy only. Entry points take an explicit ``device`` (default
+``"cuda"``); every function that uses randomness takes its draws as tensors
+at a seam, produced in production by a ``torch.Generator``.
+
+The one hand-written kernel is the fast-sweep BFS flood fill
+(``csrc/flood_sweep.cu``, bound in ``ops/flood.py``).
+"""
+
+__version__ = "0.1.0"
+
+from active_tracking_rl_torch.config import (  # noqa: F401
+    EnvConfig,
+    NetConfig,
+    TrainConfig,
+    env_ids,
+    parse_env_id,
+)

@@ -1,0 +1,167 @@
+"""Scripted navigator compiled to per-episode action tapes, batched over rows.
+
+Port of ``active_tracking_rl_tpu/envs/opponents.py`` (Nav). At reset
+the navigator's whole episode is simulated: goal candidates are drawn, one
+BFS distance field per candidate is flooded (``distance_fields_backend``:
+the CUDA kernel on the card), and ``tape_len`` ticks of replan / greedy
+descent / planB produce the tape. Per env step the target action is then
+``tape[t]``.
+
+Draws come in ``NavDraws``; ``draw_nav`` makes them from a generator. The
+Ram and RPF tapes and the dueling modes are not ported yet: ``build_tape``
+raises for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Tuple
+
+import torch
+
+from active_tracking_rl_torch.config import EnvConfig
+from active_tracking_rl_torch.envs.distance import INF, distance_fields_backend
+from active_tracking_rl_torch.ops import noise
+
+#: moves in the reference's action order: up/down/left/right, then the
+#: four Moore diagonals.
+DELTAS = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, 1), (1, 1), (-1, -1), (1, -1))
+
+_RETRIES = 6     # initial goal + 5 resamples before planB
+_PLANB_LEN = 10  # random actions in planB
+#: candidate logit of a wall cell (free cells have 0).
+_LOGIT_WALL = -1e9
+
+
+@dataclasses.dataclass
+class NavDraws:
+    candidates: torch.Tensor   # (N, G-1, S*S) float32 Gumbel: goal candidates 1..G-1
+    planb: torch.Tensor        # (N, tape_len) int: planB random actions in [0, A)
+
+
+def draw_nav(cfg: EnvConfig, n: int, generator: torch.Generator,
+             device) -> NavDraws:
+    g = cfg.nav_goal_candidates
+    return NavDraws(
+        candidates=noise.gumbel((n, g - 1, cfg.maze_size ** 2), generator,
+                                device),
+        planb=noise.randint(cfg.num_actions, (n, cfg.tape_len), generator,
+                            device))
+
+
+@functools.lru_cache(maxsize=None)
+def deltas(device: torch.device) -> torch.Tensor:
+    """(8, 2) int32 move table, made once per device (callers only read it)."""
+    return torch.tensor(DELTAS, dtype=torch.int32, device=device)
+
+
+def nav_candidates(cfg: EnvConfig, maze: torch.Tensor, first_goal: torch.Tensor,
+                   cand_gumbel: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Goal candidates and their distance fields for N maps.
+
+    Returns (candidates (N,G,2) int32, field_idx (G,) int32,
+    fields (N,G,S,S) int16): candidate 0 is the reset goal, the rest
+    uniform free cells (argmax of Gumbel noise over free cells), one field
+    per candidate.
+    """
+    g = cfg.nav_goal_candidates
+    n, s = maze.shape[0], maze.shape[-1]
+    free = (maze == 0).reshape(n, 1, -1)
+    logits = torch.where(free, 0.0, _LOGIT_WALL)
+    flat = torch.argmax(cand_gumbel + logits, dim=-1)
+    rest = torch.stack([flat // s, flat % s], dim=-1).to(torch.int32)
+    candidates = torch.cat([first_goal[:, None].to(torch.int32), rest], dim=1)
+    field_idx = torch.arange(g, dtype=torch.int32, device=maze.device)
+    fields = distance_fields_backend(maze, candidates, cfg.flood_iters)
+    return candidates, field_idx, fields
+
+
+def nav_tape(cfg: EnvConfig, maze: torch.Tensor, spawn: torch.Tensor,
+             first_goal: torch.Tensor, draws: NavDraws) -> torch.Tensor:
+    """(N, tape_len) int8 tapes simulating the reference Navigator.
+
+    Per tick: when the plan is exhausted, replan: try up to 6 candidates for
+    a reachable goal at path length >= 1, else fall back to 10 random actions
+    (planB). Then act: greedy descent on the active field (first-min
+    tie-break in action order) or the planB action; a move into a wall
+    stays. Replans fire on plan exhaustion only, and candidates wrap modulo
+    G, exactly as in the JAX package.
+    """
+    na = cfg.num_actions
+    g = cfg.nav_goal_candidates
+    dev = maze.device
+    _, _, fields = nav_candidates(cfg, maze, first_goal, draws.candidates)
+    n, _, s, _ = fields.shape
+    wall = maze != 0
+
+    # Greedy action per (field, cell): strict `<` over the shifted neighbour
+    # fields keeps the first minimum; bit a of wmask = wall at cell + DELTAS[a].
+    padded = torch.nn.functional.pad(fields, (1, 1, 1, 1), value=INF)
+    wpad = torch.nn.functional.pad(wall, (1, 1, 1, 1), value=True)
+    best = torch.full_like(fields, INF)
+    amap = torch.zeros_like(fields, dtype=torch.uint8)
+    wmask = torch.zeros((n, s, s), dtype=torch.int32, device=dev)
+    for a in range(na):
+        dr, dc = DELTAS[a]
+        shifted = padded[:, :, 1 + dr:1 + dr + s, 1 + dc:1 + dc + s]
+        take = shifted < best
+        amap = torch.where(take, a, amap)
+        best = torch.where(take, shifted, best)
+        wmask |= wpad[:, 1 + dr:1 + dr + s, 1 + dc:1 + dc + s].to(torch.int32) << a
+
+    # cell-major tables: one row read per tick
+    dist_t = fields.reshape(n, g, s * s).transpose(1, 2).contiguous()
+    amap_t = amap.reshape(n, g, s * s).transpose(1, 2).contiguous()
+    wbits_t = wmask.reshape(n, s * s)
+    rows = torch.arange(n, device=dev)
+    try_off = torch.arange(_RETRIES, device=dev)
+    move = deltas(dev)[:na]
+    planb_actions = draws.planb.to(torch.int64)
+
+    pos = spawn.to(torch.int64)
+    goal_ptr = torch.zeros(n, dtype=torch.int64, device=dev)
+    cur_field = torch.zeros(n, dtype=torch.int64, device=dev)
+    remaining = torch.zeros(n, dtype=torch.int64, device=dev)
+    planb = torch.zeros(n, dtype=torch.bool, device=dev)
+    tape = torch.empty((n, cfg.tape_len), dtype=torch.int8, device=dev)
+    for tick in range(cfg.tape_len):
+        need = remaining <= 0
+        cell = pos[:, 0] * s + pos[:, 1]
+        dists_all = dist_t[rows, cell]                    # (N, G) int16
+        amap_row = amap_t[rows, cell]                     # (N, G)
+        wbits = wbits_t[rows, cell]                       # (N,)
+
+        # replan
+        try_idx = (goal_ptr[:, None] + try_off) % g       # (N, 6)
+        dists = dists_all.gather(1, try_idx)
+        ok = (dists >= 1) & (dists < INF)
+        any_ok = ok.any(1)
+        first = torch.argmax(ok.to(torch.uint8), dim=1)
+        sel = torch.where(any_ok, first, _RETRIES - 1)[:, None]
+        goal_ptr = torch.where(need, goal_ptr + torch.where(any_ok, first + 1,
+                                                            _RETRIES), goal_ptr)
+        cur_field = torch.where(need, try_idx.gather(1, sel)[:, 0], cur_field)
+        r_remaining = torch.where(any_ok, dists.gather(1, sel)[:, 0].long(),
+                                  _PLANB_LEN)
+        remaining = torch.where(need, r_remaining, remaining)
+        planb = torch.where(need, ~any_ok, planb)
+
+        # act, then move (a wall stays)
+        greedy = amap_row.gather(1, cur_field[:, None])[:, 0].long()
+        action = torch.where(planb, planb_actions[:, tick], greedy)
+        hit = ((wbits >> action) & 1).bool()
+        pos = torch.where(hit[:, None], pos, pos + move[action])
+        remaining = remaining - 1
+        tape[:, tick] = action
+    return tape
+
+
+def build_tape(cfg: EnvConfig, maze: torch.Tensor, spawn: torch.Tensor,
+               first_goal: torch.Tensor, draws: NavDraws) -> torch.Tensor:
+    """Nav: the navigator tape. The other target modes are not ported yet."""
+    if cfg.target_mode != "Nav":
+        raise NotImplementedError(
+            f"the {cfg.target_mode} target is not ported yet")
+    return nav_tape(cfg, maze, spawn, first_goal, draws)

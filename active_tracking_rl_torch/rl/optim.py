@@ -1,0 +1,86 @@
+"""SharedAdam with global-norm clipping, and the train-mode parameter mask.
+
+Port of ``active_tracking_rl_tpu/rl/optim.py:make_optimizer`` (Adam branch)
+and ``rl/learner.py:make_optimizer_for``. The reference's SharedAdam differs
+from stock Adam: eps = 1e-3, amsgrad on, denominator sqrt(max v) + eps and
+step size lr * sqrt(1 - b2^t) / (1 - b1^t). Before each update the gradients
+of the optimized parameters are clipped to global norm `grad_clip` (optax's
+``clip_by_global_norm``). SharedRMSprop waits.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List
+
+import torch
+from torch import nn
+
+from active_tracking_rl_torch.config import TrainConfig
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """g <- g if |g| < max_norm else g / |g| * max_norm, in place."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+class SharedAdam(torch.optim.Optimizer):
+    """The reference SharedAdam (weight decay 0), with gradient clipping."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-3, amsgrad: bool = True,
+                 grad_clip: float = 50.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      amsgrad=amsgrad, grad_clip=grad_clip))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        assert closure is None
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p in params]
+            clip_by_global_norm_(grads, group["grad_clip"])
+            b1, b2 = group["betas"]
+            for p, g in zip(params, grads):
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                    st["max_exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                m = st["exp_avg"].mul_(b1).add_((1 - b1) * g)
+                v = st["exp_avg_sq"].mul_(b2).add_((1 - b2) * (g * g))
+                vmax = torch.maximum(st["max_exp_avg_sq"], v,
+                                     out=st["max_exp_avg_sq"])
+                denom = vmax if group["amsgrad"] else v
+                # bias corrections in float32, as the JAX package computes them
+                t = torch.tensor(float(st["step"]), dtype=torch.float32)
+                bias1 = 1 - b1 ** t
+                bias2 = 1 - b2 ** t
+                step_size = float(group["lr"] * torch.sqrt(bias2) / bias1)
+                p.add_(-step_size * m / (torch.sqrt(denom) + group["eps"]))
+
+
+def trained_parameters(model: nn.Module, train_mode: int) -> List[nn.Parameter]:
+    """Mode 0: player0 only; mode 1: player1 only; otherwise all."""
+    if train_mode in (0, 1):
+        return list(getattr(model, f"player{train_mode}").parameters())
+    return list(model.parameters())
+
+
+def make_optimizer_for(model: nn.Module, tcfg: TrainConfig) -> SharedAdam:
+    """SharedAdam over the parameters the static train mode trains; the
+    others get no update at all (the JAX package zeroes theirs)."""
+    if tcfg.optimizer != "Adam":
+        raise NotImplementedError(f"{tcfg.optimizer} is not ported yet")
+    return SharedAdam(trained_parameters(model, tcfg.train_mode), lr=tcfg.lr,
+                      amsgrad=tcfg.amsgrad, grad_clip=tcfg.grad_clip)

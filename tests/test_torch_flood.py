@@ -1,0 +1,217 @@
+"""The port's flood fill (active_tracking_rl_torch/ops/flood.py) against the
+JAX package's oracle ``envs/distance.py:distance_fields`` and the NumPy BFS
+(tests/oracles.py), bit for bit. Mirrors tests/test_flood_pallas.py.
+
+On the CPU the dispatch runs the kernel's plain twin; the CUDA kernel itself
+is held against the twin on the card by chip_smoke.py (and by
+test_cuda_kernel_matches_twin below when a card is present).
+"""
+
+import os
+import subprocess
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tests.torch_draws  # noqa: F401  (one CPU thread for torch)
+from active_tracking_rl_tpu.config import EnvConfig
+from active_tracking_rl_tpu.envs import maps
+from active_tracking_rl_tpu.envs.distance import distance_fields
+from active_tracking_rl_torch.envs import distance as tdist
+from active_tracking_rl_torch.ops import flood
+from tests.oracles import bfs_distance
+
+INF = 16000
+
+
+def numpy_maze(side: int, seed: int) -> np.ndarray:
+    """A perfect maze (one path between any two cells) on an odd grid."""
+    rng = np.random.RandomState(seed)
+    m = np.ones((side, side), np.uint8)
+    m[1, 1] = 0
+    stack = [(1, 1)]
+    while stack:
+        r, c = stack[-1]
+        nbrs = [(r + dr, c + dc) for dr, dc in ((-2, 0), (2, 0), (0, -2), (0, 2))
+                if 0 < r + dr < side - 1 and 0 < c + dc < side - 1
+                and m[r + dr, c + dc] == 1]
+        if not nbrs:
+            stack.pop()
+            continue
+        nr, nc = nbrs[rng.randint(len(nbrs))]
+        m[(r + nr) // 2, (c + nc) // 2] = 0
+        m[nr, nc] = 0
+        stack.append((nr, nc))
+    return m
+
+
+def _free_goals(m: np.ndarray, k: int, seed: int) -> np.ndarray:
+    free = np.argwhere(m == 0)
+    rng = np.random.RandomState(seed)
+    return free[rng.choice(len(free), k, replace=False)].astype(np.int32)
+
+
+def _maps():
+    block0 = np.array(maps.generate_block_map(
+        EnvConfig(map_type="Block", level=0), jax.random.PRNGKey(0)))
+    block1 = np.array(maps.generate_block_map(
+        EnvConfig(map_type="Block", level=1), jax.random.PRNGKey(1)))
+    empty = np.array(maps.generate_block_map(
+        EnvConfig(map_type="Empty"), jax.random.PRNGKey(2)))
+    return {"block0": block0, "block1": block1, "empty": empty,
+            "numpy_maze": numpy_maze(81, 3)}
+
+
+MAPS = _maps()
+
+
+@pytest.fixture(scope="module")
+def jax_fields():
+    """distance_fields compiled once per iters value."""
+    return {it: jax.jit(lambda m, g, it=it: distance_fields(m, g, it))
+            for it in (48, 96, 256)}
+
+
+def _goals_with_pads(m, k, seed):
+    g = _free_goals(m, k, seed)
+    pads = np.full((2, 2), -1, np.int32)
+    wall = np.argwhere(m == 1)[:1].astype(np.int32)   # a goal on a wall
+    return np.concatenate([g, pads, wall])
+
+
+@pytest.mark.parametrize("iters", [48, 96, 256])
+@pytest.mark.parametrize("name", sorted(MAPS))
+def test_twin_matches_jax_oracle(jax_fields, name, iters):
+    m = MAPS[name]
+    goals = _goals_with_pads(m, 5, iters)
+    want = np.asarray(jax_fields[iters](m, goals))
+    got = tdist.distance_fields(torch.from_numpy(m), torch.from_numpy(goals),
+                                iters).numpy()
+    assert got.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("iters", [48, 256])
+@pytest.mark.parametrize("name", ["block0", "numpy_maze"])
+def test_twin_matches_bfs_oracle_capped(name, iters):
+    m = MAPS[name]
+    goals = _free_goals(m, 3, 7)
+    got = tdist.distance_fields(torch.from_numpy(m), torch.from_numpy(goals),
+                                iters).numpy()
+    for g, field in zip(goals, got):
+        want = bfs_distance(m, g)
+        want[want > iters] = INF
+        np.testing.assert_array_equal(field, want)
+
+
+def test_batched_twin_matches_per_map(jax_fields):
+    """(N, S, S) mazes with (N, G, 2) goals, G not a multiple of 16, equal
+    the per-map JAX fields."""
+    names = ["block0", "block1", "empty"]
+    mz = np.stack([MAPS[n] for n in names])
+    goals = np.stack([_goals_with_pads(MAPS[n], 6, i)
+                      for i, n in enumerate(names)])
+    got = flood.flood_fields_plain(torch.from_numpy(mz),
+                                   torch.from_numpy(goals), 96).numpy()
+    for i in range(len(names)):
+        np.testing.assert_array_equal(
+            got[i], np.asarray(jax_fields[96](mz[i], goals[i])))
+
+
+def test_backend_on_cpu_is_the_twin():
+    m = torch.from_numpy(MAPS["block1"])[None].repeat(2, 1, 1)
+    goals = torch.from_numpy(
+        np.stack([_goals_with_pads(MAPS["block1"], 4, s) for s in (1, 2)]))
+    before = flood.FLOOD_SWEEP.launches
+    got = tdist.distance_fields_backend(m, goals, 96)
+    np.testing.assert_array_equal(
+        got.numpy(), flood.flood_fields_plain(m, goals, 96).numpy())
+    assert flood.FLOOD_SWEEP.launches == before
+
+
+def test_dispatch_rejects_other_devices():
+    m = torch.zeros((1, 82, 82), dtype=torch.uint8, device="meta")
+    g = torch.zeros((1, 2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        flood.flood_fields(m, g, 48)
+
+
+def test_kernel_wrapper_never_runs_the_twin():
+    """The CUDA wrapper refuses CPU tensors instead of falling back."""
+    m = torch.from_numpy(MAPS["empty"])[None]
+    g = torch.zeros((1, 1, 2), dtype=torch.int32)
+    before = flood.FLOOD_SWEEP.launches
+    with pytest.raises(ValueError):
+        flood.FLOOD_SWEEP(m, g, 48)
+    assert flood.FLOOD_SWEEP.launches == before
+
+
+def test_kernel_source_builds_with_nvcc_alone():
+    """Plain C launcher for ctypes, sm_90a, no PyTorch headers."""
+    src = flood.SOURCE.read_text()
+    assert 'extern "C" int flood_sweep_launch(' in src
+    assert "torch/extension.h" not in src and "ATen" not in src
+    assert "arch=compute_90a,code=sm_90a" in flood.NVCC_FLAGS
+    assert "-shared" in flood.NVCC_FLAGS
+    assert flood.BUILD_DIR.name == "_build"
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """flood.SOURCE and BUILD_DIR in tmp_path; nvcc replaced by a stub that
+    writes its -o file. Yields the list of the stub's command lines."""
+    src = tmp_path / "flood_sweep.cu"
+    src.write_text("// kernel source")
+    monkeypatch.setattr(flood, "SOURCE", src)
+    monkeypatch.setattr(flood, "BUILD_DIR", tmp_path / "_build")
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"library")
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info: 32 registers")
+
+    monkeypatch.setattr(flood.subprocess, "run", run)
+    return calls
+
+
+@pytest.mark.parametrize("lib_is_newer", [True, False])
+def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
+    kernel = flood.FloodSweepKernel()
+    lib = kernel.build()              # nothing built yet: nvcc runs
+    assert len(fake_nvcc) == 1 and lib.read_bytes() == b"library"
+    assert kernel.build_seconds is not None
+    t = flood.SOURCE.stat().st_mtime + (10 if lib_is_newer else -10)
+    os.utime(lib, (t, t))
+    assert kernel.build() == lib
+    assert len(fake_nvcc) == (1 if lib_is_newer else 2)
+    assert (kernel.build_seconds is None) == lib_is_newer
+
+
+def test_smoke_build_phase_reports_a_reused_library(fake_nvcc, monkeypatch,
+                                                    capsys):
+    """chip_smoke.py's build line, run twice in one checkout."""
+    import chip_smoke
+    monkeypatch.setattr(flood, "FLOOD_SWEEP", flood.FloodSweepKernel())
+    chip_smoke.phase_build(flood)
+    assert "nvcc" in capsys.readouterr().out
+    chip_smoke.phase_build(flood)
+    assert "reused" in capsys.readouterr().out
+    assert len(fake_nvcc) == 1
+
+
+def test_cuda_kernel_matches_twin():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    names = sorted(MAPS)
+    for name in names:
+        m = torch.from_numpy(MAPS[name])[None].repeat(3, 1, 1)
+        goals = torch.from_numpy(np.stack(
+            [_goals_with_pads(MAPS[name], 13, s) for s in range(3)]))
+        for iters in (48, 256):
+            want = flood.flood_fields_plain(m, goals, iters)
+            got = flood.flood_fields(m.cuda(), goals.cuda(), iters).cpu()
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
