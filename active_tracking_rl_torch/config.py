@@ -1,9 +1,10 @@
 """Typed configuration: the port's own copy of the JAX package's config.
 
 Same env-id grammar (72 ids), same field names and defaults as
-``active_tracking_rl_tpu/config.py``, minus the knobs that only meant
-something to XLA or the TPU (``flood_backend``: the port dispatches by
-tensor device; ``bf16`` and ``remat``: not ported yet).
+``active_tracking_rl_tpu/config.py``, minus ``bf16`` and ``remat`` (not
+ported yet). ``flood_backend`` keeps the JAX names; each picks a flood
+implementation, and the tensor's device picks the kernel or its plain twin
+(``envs/distance.py:distance_fields_backend``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,12 @@ class EnvConfig:
     nav_goal_candidates: int = 16
     #: flood-fill cap: paths longer than this count as unreachable.
     flood_iters: int = 256
-    #: training aid for Full-obs configs (not ported yet).
+    #: distance-field backend: "auto" or "pallas_sweep" (the fast-sweep
+    #: kernel), "pallas" (the relaxation kernel), "xla" (the plain
+    #: relaxation) or "sweep" (the plain fast sweep).
+    flood_backend: str = "auto"
+    #: training aid for Full-obs configs: roll each agent's full map so the
+    #: observer sits at the centre cell (off for every registered id).
     center_full_obs: bool = False
 
     @property

@@ -1,7 +1,8 @@
 // Exact 4-connected BFS distance fields by fast sweeping, one field per block.
 //
-// Replaces the TPU kernel `_sweep_kernel` (int32 carry) reached through
-// `flood_fields_pallas(variant="sweep")` in
+// Replaces the TPU kernel `_sweep_kernel` reached through
+// `flood_fields_pallas(variant="sweep")` (int32 carry) and
+// `flood_fields_pallas(variant="sweep16")` (int16 carry) in
 // active_tracking_rl_tpu/ops/flood_pallas.py. Contract (the same as the
 // iteration-capped relaxation `distance_fields` in envs/distance.py of both
 // packages): mazes (N, S, S) uint8 (nonzero = wall), goals (N, G, 2) int32
@@ -9,17 +10,20 @@
 // it is <= cap, and INF = 16000 elsewhere, at walls, and for every cell of a
 // field whose goal is off the grid or on a wall (a (-1, -1) pad row).
 //
-// Design. One thread block per field keeps the (S, S) int32 field and the
-// wall mask in shared memory for the whole solve (82 * 82 * 5 B = 33.6 KB
-// at S = 82). A round is four Gauss-Seidel passes: down every column, up
-// every column, right along every row, left along every row. Each pass gives
-// one thread to one line and scans it in sequence, d = min(d, prev + 1) on
-// free cells, so one pass carries a distance along a whole straight run.
-// A shortest path with z turns is exact after about z / 2 + 1 rounds. The
-// block stops after the first round that changes nothing (or after
-// max_rounds), applies the cap and writes int16. The pass order is the TPU
-// kernel's (axis 1 forward and back, then axis 2), so even a field stopped by
-// max_rounds matches it.
+// Design. One thread block per field keeps the (S, S) field and the wall
+// mask in shared memory for the whole solve. The field's type T is the
+// carry: int32 (82 * 82 * 5 B = 33.6 KB at S = 82) or int16 (3 B a cell,
+// 20.2 KB). Arithmetic is done in int either way and a value is stored only
+// when it is prev + 1 < cur <= INF, so the int16 carry cannot overflow and
+// both carries give the same fields. A round is four Gauss-Seidel passes:
+// down every column, up every column, right along every row, left along
+// every row. Each pass gives one thread to one line and scans it in
+// sequence, d = min(d, prev + 1) on free cells, so one pass carries a
+// distance along a whole straight run. A shortest path with z turns is exact
+// after about z / 2 + 1 rounds. The block stops after the first round that
+// changes nothing (or after max_rounds), applies the cap and writes int16.
+// The pass order is the TPU kernel's (axis 1 forward and back, then axis 2),
+// so even a field stopped by max_rounds matches it.
 //
 // What bounds it on an H100. The least work is the output: N * G * S * S
 // int16 values, 110 MB per pool refresh at 512 rows x 16 goals x 82^2, which
@@ -29,26 +33,28 @@
 // memory sees only that one write and the one read of the maze. What it does
 // not yet do is hide the serial scans: each pass is S dependent shared-memory
 // steps on 82 of the block's 96 threads, so the kernel is latency-bound far
-// above the byte bound (PERF.md has the measured time). Speed is later work.
+// above the byte bound (PERF.md has the measured time). The int16 carry
+// frees shared memory for more resident blocks. Speed is later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (see ops/flood.py). No PyTorch
-// headers: the launcher has a plain C interface and is loaded with ctypes.
+// headers: the launchers have a plain C interface and are loaded with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int32_t kInf = 16000;
+constexpr int kInf = 16000;
 
+template <typename T>
 __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
                                    const int32_t* __restrict__ goals,
                                    int16_t* __restrict__ out, int g, int s,
                                    int cap, int max_rounds) {
-  extern __shared__ int32_t smem[];
-  int32_t* d = smem;                                          // (s, s) field
-  uint8_t* wall = reinterpret_cast<uint8_t*>(smem + s * s);   // (s, s) walls
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* d = reinterpret_cast<T*>(smem);                  // (s, s) field
+  uint8_t* wall = smem + sizeof(T) * s * s;           // (s, s) walls
 
   const int field = blockIdx.x;  // row * g + goal index
   const int cells = s * s;
@@ -61,7 +67,7 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const uint8_t w = m[i] != 0;
     wall[i] = w;
-    d[i] = (goal_on_grid && i == goal_cell && !w) ? 0 : kInf;
+    d[i] = static_cast<T>((goal_on_grid && i == goal_cell && !w) ? 0 : kInf);
   }
   __syncthreads();
 
@@ -73,7 +79,7 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
       for (int r = 1; r < s; ++r) {
         const int i = r * s + t;
         int cur = d[i];
-        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = cur; changed = 1; }
+        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = static_cast<T>(cur); changed = 1; }
         prev = cur;
       }
     }
@@ -83,7 +89,7 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
       for (int r = s - 2; r >= 0; --r) {
         const int i = r * s + t;
         int cur = d[i];
-        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = cur; changed = 1; }
+        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = static_cast<T>(cur); changed = 1; }
         prev = cur;
       }
     }
@@ -93,7 +99,7 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
       for (int c = 1; c < s; ++c) {
         const int i = t * s + c;
         int cur = d[i];
-        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = cur; changed = 1; }
+        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = static_cast<T>(cur); changed = 1; }
         prev = cur;
       }
     }
@@ -103,7 +109,7 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
       for (int c = s - 2; c >= 0; --c) {
         const int i = t * s + c;
         int cur = d[i];
-        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = cur; changed = 1; }
+        if (!wall[i] && prev + 1 < cur) { cur = prev + 1; d[i] = static_cast<T>(cur); changed = 1; }
         prev = cur;
       }
     }
@@ -112,24 +118,38 @@ __global__ void flood_sweep_kernel(const uint8_t* __restrict__ maze,
 
   int16_t* o = out + static_cast<size_t>(field) * cells;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int32_t v = d[i];
+    const int v = d[i];
     o[i] = static_cast<int16_t>(v > cap ? kInf : v);
   }
 }
 
-}  // namespace
-
-// Launches N * G blocks on `stream`; returns cudaGetLastError() (0 = ok).
-extern "C" int flood_sweep_launch(const void* maze, const void* goals, void* out,
-                                  int n, int g, int s, int cap, int max_rounds,
-                                  void* stream) {
+template <typename T>
+int launch(const void* maze, const void* goals, void* out, int n, int g, int s,
+           int cap, int max_rounds, void* stream) {
   const int fields = n * g;
   if (fields == 0) return 0;
   const int threads = ((s + 31) / 32) * 32;
-  const size_t shmem = static_cast<size_t>(s) * s * (sizeof(int32_t) + 1);
-  flood_sweep_kernel<<<fields, threads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const size_t shmem = static_cast<size_t>(s) * s * (sizeof(T) + 1);
+  flood_sweep_kernel<T><<<fields, threads, shmem,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(maze), static_cast<const int32_t*>(goals),
       static_cast<int16_t*>(out), g, s, cap, max_rounds);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each launches N * G blocks on `stream` and returns cudaGetLastError()
+// (0 = ok). `flood_sweep_launch` carries the field in int32 (variant
+// "sweep"), `flood_sweep16_launch` in int16 (variant "sweep16").
+extern "C" int flood_sweep_launch(const void* maze, const void* goals, void* out,
+                                  int n, int g, int s, int cap, int max_rounds,
+                                  void* stream) {
+  return launch<int32_t>(maze, goals, out, n, g, s, cap, max_rounds, stream);
+}
+
+extern "C" int flood_sweep16_launch(const void* maze, const void* goals,
+                                    void* out, int n, int g, int s, int cap,
+                                    int max_rounds, void* stream) {
+  return launch<int16_t>(maze, goals, out, n, g, s, cap, max_rounds, stream);
 }

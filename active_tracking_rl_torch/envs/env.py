@@ -16,9 +16,10 @@ import torch
 
 from active_tracking_rl_torch.config import EnvConfig
 from active_tracking_rl_torch.envs import maps
-from active_tracking_rl_torch.envs.observe import partial_obs
-from active_tracking_rl_torch.envs.opponents import (NavDraws, build_tape,
-                                                     deltas, draw_nav)
+from active_tracking_rl_torch.envs.observe import observe
+from active_tracking_rl_torch.envs.opponents import (NavDraws, RamDraws,
+                                                     build_tape, deltas,
+                                                     draw_nav, draw_ram)
 from active_tracking_rl_torch.envs.types import EnvState, info_dict
 
 
@@ -26,22 +27,20 @@ from active_tracking_rl_torch.envs.types import EnvState, info_dict
 class ResetDraws:
     map: maps.MapDraws
     spawns: maps.SpawnDraws
-    nav: Optional[NavDraws]    # None for the modes other than Nav
+    nav: Optional[NavDraws] = None    # Nav and RPF only
+    ram: Optional[RamDraws] = None    # Ram only
 
 
 def draw_reset(cfg: EnvConfig, n: int, generator: torch.Generator,
                device) -> ResetDraws:
-    nav = draw_nav(cfg, n, generator, device) if cfg.target_mode == "Nav" \
-        else None
-    return ResetDraws(maps.draw_map(cfg, n, generator, device),
-                      maps.draw_spawns(cfg, n, generator, device), nav)
-
-
-def observe(cfg: EnvConfig, maze_padded: torch.Tensor,
-            pos: torch.Tensor) -> torch.Tensor:
-    if cfg.obs_type == "Full":
-        raise NotImplementedError("Full observations are not ported yet")
-    return partial_obs(cfg, maze_padded, pos)
+    """Every draw `reset` needs for n rows of `cfg`'s map and target mode."""
+    draws = ResetDraws(maps.draw_map(cfg, n, generator, device),
+                       maps.draw_spawns(cfg, n, generator, device))
+    if cfg.target_mode in ("Nav", "RPF"):
+        draws.nav = draw_nav(cfg, n, generator, device)
+    elif cfg.target_mode == "Ram":
+        draws.ram = draw_ram(cfg, n, generator, device)
+    return draws
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,7 +62,8 @@ def reset(cfg: EnvConfig, draws: ResetDraws) -> Tuple[EnvState, torch.Tensor]:
         patrol = maps.patrol_goals(cfg, maze.device)
         maze = maps.carve_patrol(maze, patrol)
     pos, goals = maps.sample_spawns(cfg, maze, draws.spawns, patrol)
-    tape = build_tape(cfg, maze, pos[:, 1], goals[:, 1], draws.nav)
+    tape = build_tape(cfg, maze, pos[:, 1], goals[:, 1], draws.nav,
+                      draws.ram)
     p = cfg.pob_size
     maze_padded = torch.nn.functional.pad(maze, (p, p, p, p), value=1)
     n, dev = maze.shape[0], maze.device
@@ -88,7 +88,7 @@ def step(cfg: EnvConfig, state: EnvState, actions: torch.Tensor):
     """One transition for every row, time limit included.
 
     actions: (N, 2) int. Scripted modes replace the target's action with
-    ``tape[t]``. Returns (state', obs (N,2,w,w) uint8, rewards (N,2) float32,
+    ``tape[t]``. Returns (state', obs (N,2,H,W) uint8, rewards (N,2) float32,
     done (N,) bool, info).
     """
     p = cfg.pob_size

@@ -1,17 +1,19 @@
-"""Block/Empty map generation and spawn sampling, batched over rows.
+"""Map generation (Block, Empty, Maze) and spawn sampling, batched over rows.
 
 Port of ``active_tracking_rl_tpu/envs/maps.py``. Every function takes a
 batch of N maps and its random draws as tensors (``MapDraws``,
 ``SpawnDraws``); ``draw_map`` and ``draw_spawns`` make them from a
 ``torch.Generator``. Fed the draws that ``jax.random`` made, each function
 returns the JAX package's result bit for bit.
-
-The maze walk (``generate_maze_map``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,8 +28,17 @@ _SPAWN_RETRIES = 8
 
 @dataclasses.dataclass
 class MapDraws:
-    obstacle_u: torch.Tensor   # (N,) float32 U[0,1): obstacle ratio (Block level 0)
-    perm: torch.Tensor         # (N, (S-2)^2) int64: obstacle cell permutation
+    #: (N,) float32 U[0,1): the obstacle ratio (Block) or the walk's
+    #: complexity and density ratio (Maze), read at level 0 only.
+    ratio_u: torch.Tensor
+    #: Block/Empty: (N, (S-2)^2) int64 obstacle cell permutation.
+    perm: Optional[torch.Tensor] = None
+    #: Maze: (N, max_density, 2) int64 walk starts (row, col) in [0, S//2],
+    #: in units of two cells.
+    walk_start: Optional[torch.Tensor] = None
+    #: Maze: (N, max_density, max_complexity, 3) int64; [..., m - 2] is the
+    #: walk step's draw from [0, m) for m = 2, 3, 4 valid neighbours.
+    walk_pick: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -40,9 +51,21 @@ class SpawnDraws:
 
 def draw_map(cfg: EnvConfig, n: int, generator: torch.Generator,
              device) -> MapDraws:
+    u = torch.rand((n,), generator=generator, device=device)
+    if cfg.map_type == "Maze":
+        max_complexity, max_density = maze_loop_bounds(cfg)
+        half = cfg.maze_size // 2
+        picks = torch.rand((n, max_density, max_complexity, 1),
+                           generator=generator, device=device)
+        m = torch.arange(2, 5, device=device)
+        return MapDraws(
+            ratio_u=u,
+            walk_start=noise.randint(half + 1, (n, max_density, 2), generator,
+                                     device),
+            walk_pick=torch.floor(picks * m).long())
     interior = cfg.maze_size - 2
     return MapDraws(
-        obstacle_u=torch.rand((n,), generator=generator, device=device),
+        ratio_u=u,
         perm=noise.permutations(n, interior * interior, generator, device))
 
 
@@ -70,7 +93,7 @@ def generate_block_map(cfg: EnvConfig, draws: MapDraws) -> torch.Tensor:
     interior (the first floor(ratio * 6400) cells of a permutation), wall pad."""
     interior = cfg.maze_size - 2
     n_cells = interior * interior
-    ratio = block_obstacle_ratio(cfg, draws.obstacle_u)
+    ratio = block_obstacle_ratio(cfg, draws.ratio_u)
     num_obstacles = torch.floor(ratio * n_cells).to(torch.int64)
     rank = torch.arange(n_cells, device=ratio.device)
     chosen = (rank[None, :] < num_obstacles[:, None]).to(torch.uint8)
@@ -79,9 +102,104 @@ def generate_block_map(cfg: EnvConfig, draws: MapDraws) -> torch.Tensor:
     return torch.nn.functional.pad(maze, (1, 1, 1, 1), value=1)
 
 
+def maze_complexity_density(cfg: EnvConfig, u: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk's loop counts per row, (N,) int64 each.
+
+    r = 0.02 * level (level > 0) or 0.03 * U[0,1) (level 0), in float32;
+    complexity = floor(r * 5 * (S + S)), density = floor(r * (S//2)^2).
+    """
+    if cfg.level > 0:
+        r = torch.full_like(u, cfg.level * 0.02)
+    else:
+        r = 0.03 * u
+    s = cfg.maze_size
+    complexity = torch.floor(r * (5 * (s + s))).long()
+    density = torch.floor(r * ((s // 2) * (s // 2))).long()
+    return complexity, density
+
+
+def maze_loop_bounds(cfg: EnvConfig) -> Tuple[int, int]:
+    """(max_complexity, max_density): static bounds of the walk's loops."""
+    s = cfg.maze_size
+    r_max = cfg.level * 0.02 if cfg.level > 0 else 0.03
+    max_complexity = int(math.floor(r_max * 5 * (s + s))) + 1
+    max_density = int(math.floor(r_max * (s // 2) * (s // 2))) + 1
+    return max_complexity, max_density
+
+
+#: walk offsets (d_row, d_col) in the reference's order: left, right, up, down.
+_WALK_OFFSETS = ((0, -2), (0, 2), (-2, 0), (2, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_tables(s: int, device: torch.device):
+    """Lookup tables of the walk step, made once per side and device.
+
+    code24 (S*S,) int64: 24 x the cell's 4-bit mask of valid neighbours (in
+    the reference's order: x > 1, x < S-2, y > 1, y < S-2). step (16*24,)
+    int64: the flat cell offset that draw index r2*12 + r3*4 + r4 picks from
+    a cell of each mask, where r_m is the draw from [0, m) and the mask's
+    number of valid neighbours says which m applies (r = 0 with one valid
+    neighbour; the first offset with none, as argmax of all-False gives).
+    """
+    idx = torch.arange(s * s)
+    y, x = idx // s, idx % s
+    code = ((x > 1).long() | (x < s - 2).long() << 1 | (y > 1).long() << 2
+            | (y < s - 2).long() << 3)
+    step = torch.zeros(16 * 24, dtype=torch.int64)
+    for c in range(16):
+        valid = [k for k in range(4) if c >> k & 1]
+        for r2, r3, r4 in itertools.product(range(2), range(3), range(4)):
+            r = {2: r2, 3: r3, 4: r4}.get(len(valid), 0)
+            dy, dx = _WALK_OFFSETS[valid[r] if valid else 0]
+            step[c * 24 + r2 * 12 + r3 * 4 + r4] = dy * s + dx
+    return (code * 24).to(device), step.to(device)
+
+
+def generate_maze_map(cfg: EnvConfig, draws: MapDraws) -> torch.Tensor:
+    """(N, S, S) uint8 wall maps by the aisle-growing random walk, S odd.
+
+    For each of `density` starts (on even cells, which may lie on the border,
+    as in the reference), mark the start and walk up to `complexity` steps:
+    pick one of the valid neighbours two cells away (left, right, up, down,
+    in that order) with the draw for their number and, if it is free, wall
+    it and the cell between. The loops run to their static bounds with
+    inactive steps masked, in lock step over the rows; positions are flat
+    cell indices, so a step is a few table lookups.
+    """
+    s = cfg.maze_size
+    n = draws.ratio_u.shape[0]
+    dev = draws.ratio_u.device
+    complexity, density = maze_complexity_density(cfg, draws.ratio_u)
+    max_complexity, max_density = maze_loop_bounds(cfg)
+    code24, step = _walk_tables(s, dev)
+    z = torch.zeros((n, s, s), dtype=torch.uint8, device=dev)
+    z[:, 0, :] = z[:, -1, :] = z[:, :, 0] = z[:, :, -1] = 1
+    z = z.reshape(n, s * s)
+    starts = (draws.walk_start[..., 0] * s + draws.walk_start[..., 1]) * 2
+    picks = (draws.walk_pick * torch.tensor([12, 4, 1], device=dev)).sum(-1)
+    active_i = torch.arange(max_density, device=dev) < density[:, None]
+    active = (active_i[:, :, None]
+              & (torch.arange(max_complexity, device=dev)
+                 < complexity[:, None, None]))        # (N, D, C)
+
+    for i in range(max_density):
+        cell = starts[:, i, None]
+        z.scatter_(1, cell, z.gather(1, cell) | active_i[:, i, None])
+        for j in range(max_complexity):
+            nxt = cell + step[code24[cell] + picks[:, i, j, None]]
+            free = z.gather(1, nxt) == 0
+            do = active[:, i, j, None] & free
+            both = torch.cat([nxt, (cell + nxt) // 2], dim=1)
+            z.scatter_(1, both, z.gather(1, both) | do)
+            cell = torch.where(do, nxt, cell)
+    return z.reshape(n, s, s)
+
+
 def generate_map(cfg: EnvConfig, draws: MapDraws) -> torch.Tensor:
     if cfg.map_type == "Maze":
-        raise NotImplementedError("Maze map generation is not ported yet")
+        return generate_maze_map(cfg, draws)
     return generate_block_map(cfg, draws)
 
 

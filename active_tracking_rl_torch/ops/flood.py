@@ -1,21 +1,27 @@
-"""BFS flood fill: the CUDA fast-sweep kernel, its plain twin, the dispatch.
+"""BFS flood fill: the CUDA kernels, their plain twins, the dispatch.
 
-``flood_fields(maze, goals, iters)`` takes a batch of mazes (N, S, S) uint8
-and goals (N, G, 2) int32 and returns (N, G, S, S) int16 distance fields:
-the BFS distance where it is <= iters, INF = 16000 elsewhere and at walls.
-That is the contract of the iteration-capped relaxation
-``active_tracking_rl_tpu/envs/distance.py:distance_fields``.
+``flood_fields(maze, goals, iters, variant)`` takes a batch of mazes
+(N, S, S) uint8 and goals (N, G, 2) int32 and returns (N, G, S, S) int16
+distance fields, walls and unreached cells at INF = 16000. The variants are
+those of ``flood_fields_pallas`` in ``active_tracking_rl_tpu/ops/flood_pallas.py``:
 
-* On a CPU tensor it runs ``flood_fields_plain``, the relaxation written
-  out in PyTorch (the kernel's oracle).
-* On a CUDA tensor it launches ``csrc/flood_sweep.cu`` (which replaces the
-  TPU kernel ``_sweep_kernel`` of ``active_tracking_rl_tpu/ops/flood_pallas.py``)
-  or raises. It never falls back to the plain version.
+* ``"sweep"`` and ``"sweep16"``: the BFS distance where it is <= iters, INF
+  elsewhere (the contract of the iteration-capped relaxation
+  ``active_tracking_rl_tpu/envs/distance.py:distance_fields``). Kernel:
+  ``csrc/flood_sweep.cu`` with an int32 or an int16 carry (the TPU kernel
+  ``_sweep_kernel``). Twin: ``flood_fields_plain``.
+* ``"relax"``: synchronous relaxation in chunks of 16 sweeps, so up to
+  ceil(iters / 16) * 16 sweeps, as the TPU kernel ``_relax_kernel`` runs.
+  Kernel: ``csrc/flood_relax.cu``. Twin: ``flood_fields_relax_plain``.
 
-The kernel is compiled with ``nvcc`` into a shared library with a plain C
-interface at first use, into ``active_tracking_rl_torch/_build/`` (listed in
-``.gitignore``), and loaded with ``ctypes``. A library newer than its source
-is reused.
+On a CPU tensor ``flood_fields`` runs the variant's twin. On a CUDA tensor it
+launches the variant's kernel or raises; it never falls back to the twin.
+
+Each CUDA source is compiled with ``nvcc`` into its own shared library with
+a plain C interface at first use, into ``active_tracking_rl_torch/_build/``
+(listed in ``.gitignore``), and loaded with ``ctypes``. A library newer than
+its own source is reused. ``build_all`` builds every source at once, one
+``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,17 +44,21 @@ INF = 16000
 #: 2x headroom over the ~65 rounds a 256-step path can need.
 MAX_ROUNDS = 128
 
+#: sweeps per convergence check of the relaxation kernel.
+CHECK_EVERY = 16
+
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "flood_sweep.cu"
+CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-#: the kernel keeps an int32 field and a uint8 wall mask per block in static-
-#: limit (48 KB) dynamic shared memory.
+#: a block may use 48 KB of shared memory without opting in for more.
 _SMEM_LIMIT = 48 * 1024
 
+VARIANTS = ("relax", "sweep", "sweep16")
 
-def _seed_fields(wall: torch.Tensor, goals: torch.Tensor) -> torch.Tensor:
+
+def seed_fields(wall: torch.Tensor, goals: torch.Tensor) -> torch.Tensor:
     """(N,1,S,S) bool x (N,G,2) -> (N,G,S,S) int16: 0 at the goal, INF elsewhere.
 
     A goal off the grid or on a wall seeds nothing (an all-INF field).
@@ -61,13 +72,14 @@ def _seed_fields(wall: torch.Tensor, goals: torch.Tensor) -> torch.Tensor:
 
 def flood_fields_plain(maze: torch.Tensor, goals: torch.Tensor,
                        iters: int) -> torch.Tensor:
-    """The kernel's plain twin: `iters` synchronous min-plus relaxation sweeps.
+    """The sweep kernels' plain twin: `iters` synchronous min-plus relaxation
+    sweeps.
 
     Stops early once a sweep changes nothing: the sweep is then a fixpoint,
     so the result is that of all `iters` sweeps.
     """
     wall = (maze != 0)[:, None]
-    d = _seed_fields(wall, goals)
+    d = seed_fields(wall, goals)
     for i in range(iters):
         p = F.pad(d, (1, 1, 1, 1), value=INF)
         best = torch.minimum(torch.minimum(p[..., :-2, 1:-1], p[..., 2:, 1:-1]),
@@ -79,96 +91,153 @@ def flood_fields_plain(maze: torch.Tensor, goals: torch.Tensor,
     return d
 
 
-class FloodSweepKernel:
-    """ctypes binding of ``csrc/flood_sweep.cu`` with its launch count."""
+def flood_fields_relax_plain(maze: torch.Tensor, goals: torch.Tensor,
+                             iters: int) -> torch.Tensor:
+    """The relaxation kernel's plain twin: the same sweeps, `iters` rounded
+    up to a whole number of CHECK_EVERY-sweep chunks."""
+    chunks = max(0, -(-iters // CHECK_EVERY))
+    return flood_fields_plain(maze, goals, chunks * CHECK_EVERY)
 
-    name = "flood_sweep"
 
-    def __init__(self) -> None:
-        #: launches of the kernel, counted where it launches and nowhere else.
-        self.launches = 0
+class KernelLibrary:
+    """One CUDA source under ``csrc/``, built by nvcc into one library."""
+
+    def __init__(self, source_name: str) -> None:
+        self.source_name = source_name
         #: seconds the last build() took in nvcc (None: reused or not built).
         self.build_seconds = None
         #: the compiler's output (ptxas register and shared-memory report).
         self.build_log = ""
-        self._fn = None
+        self._cdll = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC_DIR / self.source_name
+
+    @property
+    def path(self) -> Path:
+        return BUILD_DIR / f"lib{Path(self.source_name).stem}.so"
 
     def build(self) -> Path:
-        """Compile the source with nvcc unless a newer library exists.
+        """Compile the source with nvcc unless a library newer than it exists.
 
         Sets `build_seconds` to nvcc's time, or to None when it reused the
         library.
         """
-        lib = BUILD_DIR / "libflood_sweep.so"
+        lib, src = self.path, self.source
         self.build_seconds = None
-        if lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime:
+        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = shutil.which("nvcc") or os.path.join(
             os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
         os.replace(tmp, lib)
         self.build_seconds = time.perf_counter() - t0
         self.build_log = res.stdout + res.stderr
         return lib
 
-    def _load(self):
-        if self._fn is None:
-            fn = ctypes.CDLL(str(self.build())).flood_sweep_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    def function(self, symbol: str):
+        """The launcher `symbol`: int f(maze, goals, out, n, g, s, iters,
+        extra, stream), its pointers and stream as c_void_p."""
+        if self._cdll is None:
+            self._cdll = ctypes.CDLL(str(self.build()))
+        fn = getattr(self._cdll, symbol)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+
+
+class FloodKernel:
+    """ctypes binding of one flood launcher, with its launch count."""
+
+    def __init__(self, name: str, library: KernelLibrary, symbol: str,
+                 smem_bytes, extra: int) -> None:
+        self.name = name
+        self.library = library
+        self.symbol = symbol
+        #: shared memory one block holds for side S.
+        self.smem_bytes = smem_bytes
+        #: the launcher's last int: the round cap or the check cadence.
+        self.extra = extra
+        #: launches of the kernel, counted where it launches and nowhere else.
+        self.launches = 0
+        self._fn = None
 
     def __call__(self, maze: torch.Tensor, goals: torch.Tensor,
                  iters: int) -> torch.Tensor:
+        name = self.name
         if maze.device.type != "cuda" or goals.device != maze.device:
-            raise ValueError("flood_sweep needs maze and goals on one CUDA "
+            raise ValueError(f"{name} needs maze and goals on one CUDA "
                              f"device, got {maze.device} and {goals.device}")
         if maze.dtype != torch.uint8 or goals.dtype != torch.int32:
-            raise TypeError(f"flood_sweep takes uint8 mazes and int32 goals, "
+            raise TypeError(f"{name} takes uint8 mazes and int32 goals, "
                             f"got {maze.dtype} and {goals.dtype}")
         n, s, s2 = maze.shape
         if s != s2 or goals.shape[0] != n or goals.dim() != 3 \
                 or goals.shape[2] != 2:
-            raise ValueError(f"flood_sweep takes (N,S,S) mazes and (N,G,2) "
-                             f"goals, got {tuple(maze.shape)} and "
+            raise ValueError(f"{name} takes (N,S,S) mazes and (N,G,2) goals, "
+                             f"got {tuple(maze.shape)} and "
                              f"{tuple(goals.shape)}")
-        if s * s * 5 > _SMEM_LIMIT:
-            raise ValueError(f"flood_sweep holds S*S*5 bytes in shared "
-                             f"memory; S={s} is too large")
+        if self.smem_bytes(s) > _SMEM_LIMIT:
+            raise ValueError(f"{name} holds {self.smem_bytes(s)} bytes of "
+                             f"shared memory a block; S={s} is too large")
         if not (maze.is_contiguous() and goals.is_contiguous()):
-            raise ValueError("flood_sweep takes contiguous tensors")
+            raise ValueError(f"{name} takes contiguous tensors")
         g = goals.shape[1]
         out = torch.empty((n, g, s, s), dtype=torch.int16, device=maze.device)
-        fn = self._load()
+        if self._fn is None:
+            self._fn = self.library.function(self.symbol)
         with torch.cuda.device(maze.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(maze.data_ptr(), goals.data_ptr(), out.data_ptr(),
-                     n, g, s, int(iters), MAX_ROUNDS, stream)
+            err = self._fn(maze.data_ptr(), goals.data_ptr(), out.data_ptr(),
+                           n, g, s, int(iters), self.extra, stream)
         if err != 0:
-            raise RuntimeError(f"flood_sweep launch failed: CUDA error {err}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         self.launches += 1
         return out
 
 
-#: the process's one binding of the kernel; its `launches` is read by
-#: chip_smoke.py to show that the main path went through it.
-FLOOD_SWEEP = FloodSweepKernel()
+SWEEP_LIB = KernelLibrary("flood_sweep.cu")
+RELAX_LIB = KernelLibrary("flood_relax.cu")
+LIBRARIES = (SWEEP_LIB, RELAX_LIB)
+
+#: the process's one binding of each kernel; chip_smoke.py reads their
+#: `launches` to show that a path went through them.
+FLOOD_SWEEP = FloodKernel("flood_sweep", SWEEP_LIB, "flood_sweep_launch",
+                          lambda s: s * s * 5, MAX_ROUNDS)
+FLOOD_SWEEP16 = FloodKernel("flood_sweep16", SWEEP_LIB, "flood_sweep16_launch",
+                            lambda s: s * s * 3, MAX_ROUNDS)
+FLOOD_RELAX = FloodKernel("flood_relax", RELAX_LIB, "flood_relax_launch",
+                          lambda s: (s + 2) ** 2 * 5, CHECK_EVERY)
+
+KERNELS = {"sweep": FLOOD_SWEEP, "sweep16": FLOOD_SWEEP16,
+           "relax": FLOOD_RELAX}
+PLAIN = {"sweep": flood_fields_plain, "sweep16": flood_fields_plain,
+         "relax": flood_fields_relax_plain}
 
 
-def flood_fields(maze: torch.Tensor, goals: torch.Tensor,
-                 iters: int) -> torch.Tensor:
-    """Dispatch by device: the plain twin on the CPU, the kernel on CUDA."""
+def build_all() -> None:
+    """Build every library, one nvcc per source, all started together."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        for fut in [pool.submit(lib.build) for lib in LIBRARIES]:
+            fut.result()
+
+
+def flood_fields(maze: torch.Tensor, goals: torch.Tensor, iters: int,
+                 variant: str) -> torch.Tensor:
+    """Dispatch by device: the variant's twin on the CPU, its kernel on CUDA."""
+    if variant not in VARIANTS:
+        raise ValueError(f"flood_fields: unknown variant {variant!r}")
     if maze.device.type == "cpu":
-        return flood_fields_plain(maze, goals, iters)
+        return PLAIN[variant](maze, goals, iters)
     if maze.device.type == "cuda":
-        return FLOOD_SWEEP(maze, goals, iters)
+        return KERNELS[variant](maze, goals, iters)
     raise ValueError(f"flood_fields: no implementation for {maze.device}")

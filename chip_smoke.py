@@ -7,21 +7,32 @@ Run from the root of the repository, with no install step:
 
 Phases (each prints one line with its seconds):
   1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`;
-  2. build: compiles csrc/flood_sweep.cu with nvcc (plain C interface, ctypes);
-  3. kernel: the flood kernel against its plain PyTorch twin on the card, bit
-     for bit, at the main path's shape (512 mazes x 16 goals at S=82) on Block
-     maps of two densities and Empty maps, on perfect mazes of side 81, at
-     iters 48 and 256, with a G that is not a multiple of 16 and (-1,-1) goal
-     pads; prints the kernel's and the twin's time;
-  4. reference: on a small input, the port on the card agrees with the port on
-     the CPU (where the flood is the plain twin): reset bit for bit, one train
-     step's loss to a stated tolerance;
-  5. main path: Track2D-BlockPartialNav-v0, maze-lstm at full width, train
-     mode 0, 4096 envs, a reset pool of 512 refreshed every iteration, 20
-     steps: init_learner, one untimed warm-up step, then 3 timed train steps;
-     the loss must be finite and the flood kernel must have been launched in
-     the timed steps; prints their (warm) env-steps/s, then the time of one
-     reset pool and of one train step on a given pool.
+  2. build: compiles csrc/flood_sweep.cu and csrc/flood_relax.cu with nvcc,
+     one process per source, started together (plain C interface, ctypes);
+  3. kernel: each flood kernel (flood_sweep, flood_sweep16, flood_relax)
+     against its plain PyTorch twin on the card, bit for bit, on 512 mazes
+     at S=82 (Block maps of two densities, Empty maps) and on mazes of side
+     81 (perfect mazes and the port's own maze walk), with 16, 13 and 4 goals
+     with (-1,-1) pads and goals on walls, at iters 20, 48 and 256 (20 pins
+     the relaxation's whole 16-sweep chunks); flood_sweep16 must also equal
+     flood_sweep; prints each kernel's, its twin's and its bound's time;
+  4. reference: the port on the card against the port on the CPU (where the
+     floods are the plain twins): reset and 3 steps bit for bit (float state
+     to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
+     config and Track2D-MazePartialRPF-v0 on the relaxation kernel; and one
+     8-step train step's loss to 1e-4 relative, on the Block main path's id
+     and on Track2D-MazeFullRPF-v0;
+  5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
+     maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
+     refreshed every iteration, 20 steps: init_learner, one untimed warm-up
+     step, then 3 timed train steps; the loss must be finite and flood_sweep
+     must have been launched in the timed steps; prints their (warm)
+     env-steps/s, then the time of one reset pool, of its parts (map,
+     spawns, tape with its floods) and of one train step on a given pool;
+  6. maze-main: the same on Track2D-MazePartialNav-v0 with flood_backend
+     "pallas": flood_relax must be launched and flood_sweep must not;
+  7. sweep16-entry: flood_fields(variant="sweep16"), the int16 kernel's only
+     entry point, on one main-path reset pool's mazes and goals.
 Then one JSON line with the kernel table, the card's line from nvidia-smi,
 and the last line {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without the last line.
@@ -29,6 +40,7 @@ script exits non-zero without the last line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,7 +53,17 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS32_S = 67e12
 
 BENCH_ENV = "Track2D-BlockPartialNav-v0"
+MAZE_ENV = "Track2D-MazePartialNav-v0"
 NUM_ENVS, RESET_POOL, NUM_STEPS, TRAIN_STEPS = 4096, 512, 20, 3
+#: rows of each id's card-vs-CPU reset check
+REFERENCE_ROWS = 8
+
+SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_sweep.cu",
+           "flood_sweep16": "active_tracking_rl_torch/csrc/flood_sweep.cu",
+           "flood_relax": "active_tracking_rl_torch/csrc/flood_relax.cu"}
+REPLACES = {"flood_sweep": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
+            "flood_sweep16": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
+            "flood_relax": "active_tracking_rl_tpu/ops/flood_pallas.py:41"}
 
 
 def say(phase: str, t0: float, msg: str = "") -> None:
@@ -83,113 +105,184 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build(flood) -> None:
-    """Build the kernel, or reuse a library newer than its source."""
+    """Build every kernel library at once, or reuse those newer than their
+    sources; one line per library."""
     t0 = time.perf_counter()
-    kernel = flood.FLOOD_SWEEP
-    lib = kernel.build()
-    if kernel.build_seconds is None:
-        say("build", t0, f"reused {lib} (newer than its source)")
-        return
-    ptxas = " | ".join(line.strip() for line in kernel.build_log.splitlines()
-                       if "registers" in line or "smem" in line)
-    say("build", t0, f"nvcc {kernel.build_seconds:.2f} s; {ptxas}")
+    flood.build_all()
+    for lib in flood.LIBRARIES:
+        if lib.build_seconds is None:
+            say("build", t0, f"reused {lib.path} (newer than its source)")
+            continue
+        ptxas = " | ".join(line.strip() for line in lib.build_log.splitlines()
+                           if "registers" in line or "smem" in line)
+        say("build", t0, f"{lib.source.name}: nvcc "
+            f"{lib.build_seconds:.2f} s; {ptxas}")
+
+
+def bound(mz, goals, out, inf):
+    """The least time for the work, in ms, and what bounds it: the bytes
+    moved (mazes and goals read once, int16 fields written once) at the HBM
+    rate, or an exact BFS's operations (add + min for 4 neighbours at each
+    reached cell) at the 32-bit rate."""
+    bytes_moved = mz.numel() + goals.numel() * 4 + out.numel() * 2
+    ops = 8 * int((out < inf).sum())
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / PEAK_OPS32_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
 
 
 def phase_kernel(torch, flood, maps, tconfig, gen):
-    """Kernel against twin, bit for bit; the kernel's row of the table."""
+    """Each kernel against its twin, bit for bit; the kernels' table rows."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
 
-    def block_maps(env_id, n, u=None):
+    def pool_maps(env_id, n, u=None):
         cfg = tconfig.parse_env_id(env_id)
         draws = maps.draw_map(cfg, n, gen, dev)
         if u is not None:
-            draws.obstacle_u.fill_(u)
-        return maps.generate_block_map(cfg, draws)
+            draws.ratio_u.fill_(u)
+        return maps.generate_map(cfg, draws).contiguous()
+
+    def free_goals(mz, g):
+        s = mz.shape[-1]
+        return maps.sample_free_cells(
+            torch.rand((mz.shape[0], s * s), generator=gen, device=dev),
+            mz, g).contiguous()
 
     mazes82 = torch.cat([
-        block_maps("Track2D-BlockPartialNav-v0", 171, u=1.0),  # 15% walls
-        block_maps("Track2D-BlockPartialNav-v1", 171),          # 5% walls
-        block_maps("Track2D-EmptyPartialNav-v0", 170)]).contiguous()
+        pool_maps("Track2D-BlockPartialNav-v0", 171, u=1.0),  # 15% walls
+        pool_maps("Track2D-BlockPartialNav-v1", 171),          # 5% walls
+        pool_maps("Track2D-EmptyPartialNav-v0", 170)]).contiguous()
     rng = np.random.RandomState(0)
-    mazes81 = torch.from_numpy(
-        np.stack([perfect_maze(81, rng) for _ in range(16)])).to(dev)
+    mazes81 = torch.cat([
+        torch.from_numpy(np.stack([perfect_maze(81, rng)
+                                   for _ in range(16)])).to(dev),
+        pool_maps("Track2D-MazePartialNav-v0", 48),
+        pool_maps("Track2D-MazePartialNav-v1", 48)]).contiguous()
 
-    def goals_for(mz, g):
-        s = mz.shape[-1]
-        goals = maps.sample_free_cells(
-            torch.rand((mz.shape[0], s * s), generator=gen, device=dev),
-            mz, g)
-        goals[::3, -2:] = -1                  # (-1,-1) pads on every 3rd row
-        return goals.contiguous()
-
-    cases = []
+    errs = {name: 0 for name in SOURCES}
+    cases = 0
     for mz in (mazes82, mazes81):
-        goals16 = goals_for(mz, 16)
-        for g in (16, 13):
-            goals = goals16[:, :g].contiguous()
-            for iters in (48, 256):
-                got = flood.FLOOD_SWEEP(mz, goals, iters)
-                want = flood.flood_fields_plain(mz, goals, iters)
+        goals16 = free_goals(mz, 16)
+        for g in (16, 13, 4):
+            goals = goals16[:, :g].clone()
+            goals[::3, -2:] = -1                  # (-1,-1) pads
+            goals[1::3, 0] = 0                    # a goal on the border wall
+            for iters in (20, 48, 256):
+                want = {"sweep": flood.flood_fields_plain(mz, goals, iters),
+                        "relax": flood.flood_fields_relax_plain(mz, goals,
+                                                                iters)}
+                got = {v: flood.KERNELS[v](mz, goals, iters)
+                       for v in flood.VARIANTS}
                 torch.cuda.synchronize()
-                err = int((got.int() - want.int()).abs().max())
-                if err != 0:
-                    raise AssertionError(
-                        f"flood kernel != twin: S={mz.shape[-1]} G={g} "
-                        f"iters={iters} max_abs_err={err}")
-                cases.append(err)
+                for v, out in got.items():
+                    ref = want["relax" if v == "relax" else "sweep"]
+                    err = int((out.int() - ref.int()).abs().max())
+                    name = flood.KERNELS[v].name
+                    errs[name] = max(errs[name], err)
+                    if err != 0:
+                        raise AssertionError(
+                            f"{name} != twin: S={mz.shape[-1]} G={g} "
+                            f"iters={iters} max_abs_err={err}")
+                if not torch.equal(got["sweep16"], got["sweep"]):
+                    raise AssertionError(f"flood_sweep16 != flood_sweep: "
+                                         f"S={mz.shape[-1]} G={g} "
+                                         f"iters={iters}")
+                cases += 1
+    say("kernel", t0, f"{cases} cases: flood_sweep, flood_sweep16 and "
+        f"flood_relax == their twins bit for bit; flood_sweep16 == "
+        f"flood_sweep")
 
-    # time on main-path data: Block level-0 maps, 16 free goals, iters 256
-    cfg = tconfig.parse_env_id(BENCH_ENV)
-    mz = block_maps(BENCH_ENV, RESET_POOL)
-    goals = maps.sample_free_cells(
-        torch.rand((RESET_POOL, cfg.maze_size ** 2), generator=gen,
-                   device=dev), mz, cfg.nav_goal_candidates).contiguous()
-    iters = cfg.flood_iters
-    kernel_ms = cuda_ms(lambda: flood.FLOOD_SWEEP(mz, goals, iters), 20)
-    plain_ms = cuda_ms(lambda: flood.flood_fields_plain(mz, goals, iters), 3)
-    out = flood.FLOOD_SWEEP(mz, goals, iters)
-    n, g, s = mz.shape[0], goals.shape[1], mz.shape[-1]
-    bytes_moved = mz.numel() + goals.numel() * 4 + out.numel() * 2
-    # an exact BFS relaxes 4 neighbours (add + min) at each reached cell
-    ops = 8 * int((out < flood.INF).sum())
-    bound_ms = max(bytes_moved / PEAK_BYTES_S, ops / PEAK_OPS32_S) * 1e3
-    bound_by = ("bytes" if bytes_moved / PEAK_BYTES_S >= ops / PEAK_OPS32_S
-                else "operations")
-    say("kernel", t0, f"flood_sweep == twin bit for bit on {len(cases)} cases; "
-        f"at {n}x{g}x{s}^2 iters {iters}: kernel {kernel_ms:.4f} ms, "
-        f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(name="flood_sweep", route="cuda",
-                source="active_tracking_rl_torch/csrc/flood_sweep.cu",
-                replaces="active_tracking_rl_tpu/ops/flood_pallas.py:84",
-                launches=None, max_abs_err=max(cases), ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    # times on the main paths' data (level-0 maps of the path's family, 16
+    # free goals, iters 256), each output held against its twin once more
+    rows = {}
+    iters = tconfig.parse_env_id(BENCH_ENV).flood_iters
+    inputs = {}
+    for env_id in (BENCH_ENV, MAZE_ENV):
+        mz = pool_maps(env_id, RESET_POOL)
+        inputs[env_id] = (mz, free_goals(mz, 16))
+    timed = [("flood_sweep", BENCH_ENV), ("flood_sweep16", BENCH_ENV),
+             ("flood_relax", MAZE_ENV), ("flood_relax", BENCH_ENV),
+             ("flood_sweep", MAZE_ENV)]
+    for name, env_id in timed:
+        variant = {"flood_sweep": "sweep", "flood_sweep16": "sweep16",
+                   "flood_relax": "relax"}[name]
+        kernel, plain = flood.KERNELS[variant], flood.PLAIN[variant]
+        mz, goals = inputs[env_id]
+        kernel_ms = cuda_ms(lambda: kernel(mz, goals, iters), 20)
+        plain_ms = cuda_ms(lambda: plain(mz, goals, iters), 3)
+        out = kernel(mz, goals, iters)
+        err = int((out.int() - plain(mz, goals, iters).int()).abs().max())
+        errs[name] = max(errs[name], err)
+        if err != 0:
+            raise AssertionError(f"{name} != twin on {env_id}'s pool: "
+                                 f"max_abs_err={err}")
+        bound_ms, bound_by = bound(mz, goals, out, flood.INF)
+        n, g, s = mz.shape[0], goals.shape[1], mz.shape[-1]
+        say("kernel-time", t0, f"{name} at {n}x{g}x{s}^2 iters {iters} "
+            f"({env_id}): kernel {kernel_ms:.4f} ms, twin {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if name not in rows:  # the first line of each kernel is its row
+            rows[name] = dict(
+                name=name, route="cuda", source=SOURCES[name],
+                replaces=REPLACES[name], launches=None,
+                max_abs_err=errs[name], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return rows, inputs[BENCH_ENV]
 
 
-def phase_reference(torch, tconfig, env_mod, learner, dueling, gen_cpu):
-    """The port on the card against the port on the CPU, small input."""
-    import dataclasses
-    t0 = time.perf_counter()
-    ecfg = tconfig.parse_env_id(BENCH_ENV)
+def _to(x, dev):
+    """A draws or state dataclass (or a tensor) on `dev`."""
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to(getattr(x, f.name), dev)
+                          for f in dataclasses.fields(x)})
+    return x.to(dev) if x is not None else None
+
+
+def _assert_state_close(torch, a, b, what):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name).cpu()
+        if x.is_floating_point():
+            torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-6)
+        elif not torch.equal(x, y):
+            raise AssertionError(f"cuda != cpu in {what}.{f.name}")
+
+
+def check_reset_steps(torch, env_mod, ecfg, gen_cpu, rows, what):
+    """Reset and 3 steps on the card and on the CPU from the same draws."""
+    draws = env_mod.draw_reset(ecfg, rows, gen_cpu, "cpu")
+    actions = torch.randint(0, ecfg.num_actions, (3, rows, 2),
+                            generator=gen_cpu, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, obs = env_mod.reset(ecfg, _to(draws, dev))
+        trace = [(state, obs)]
+        for a in actions:
+            state, obs, *_ = env_mod.step(ecfg, state, a.to(dev))
+            trace.append((state, obs))
+        out[dev] = trace
+    for i, ((sc, oc), (sg, og)) in enumerate(zip(out["cpu"], out["cuda"])):
+        _assert_state_close(torch, sc, sg, f"{what} step {i}")
+        if not torch.equal(oc, og.cpu()):
+            raise AssertionError(f"cuda != cpu in {what} step {i} obs")
+
+
+def check_train_step(torch, tconfig, env_mod, learner, dueling, ecfg, env_id,
+                     gen_cpu):
+    """One 8-step train step at 16 envs (pool 8) on the card and the CPU,
+    from the same reset draws, parameters and noise. Returns both losses."""
     ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
-    tcfg = tconfig.TrainConfig(env_id=BENCH_ENV, num_envs=16, reset_pool=8,
+    tcfg = tconfig.TrainConfig(env_id=env_id, num_envs=16, reset_pool=8,
                                num_steps=8, train_mode=0)
     draws = env_mod.draw_reset(ecfg, 24, gen_cpu, "cpu")
-
-    def to(x, dev):
-        if dataclasses.is_dataclass(x):
-            return type(x)(**{f.name: to(getattr(x, f.name), dev)
-                              for f in dataclasses.fields(x)})
-        return x.to(dev) if x is not None else None
-
-    noise = learner.draw_step_noise(8, tcfg.num_envs, 4, gen_cpu, "cpu")
+    noise = learner.draw_step_noise(8, tcfg.num_envs, ecfg.num_actions,
+                                    gen_cpu, "cpu")
     params = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
                                  device="cpu", generator=gen_cpu).state_dict()
     results = {}
     for dev in ("cpu", "cuda"):
         env = env_mod.TrackEnv(ecfg, dev)
-        state, obs = env.reset(to(draws, dev))
+        state, obs = env.reset(_to(draws, dev))
         model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
                                     device=dev)
         model.load_state_dict(params)
@@ -208,26 +301,56 @@ def phase_reference(torch, tconfig, env_mod, learner, dueling, gen_cpu):
                             carry=carry.env_state.map(lambda x: x.cpu()),
                             loss=metrics.loss.item())
     for name in ("state", "carry"):
-        a, b = results["cpu"][name], results["cuda"][name]
-        for f in dataclasses.fields(a):
-            x, y = getattr(a, f.name), getattr(b, f.name)
-            if x.is_floating_point():
-                torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-6)
-            elif not torch.equal(x, y):
-                raise AssertionError(f"cuda != cpu in {name}.{f.name}")
+        _assert_state_close(torch, results["cpu"][name],
+                            results["cuda"][name], f"{env_id} {name}")
     lc, lg = results["cpu"]["loss"], results["cuda"]["loss"]
     # float32 on both sides with TF32 off: only reduction order differs
     if not abs(lc - lg) <= 1e-4 * max(1.0, abs(lc)):
-        raise AssertionError(f"train-step loss cuda {lg} != cpu {lc}")
-    say("reference", t0, f"24-row reset bit-exact cuda vs cpu; 8-step train "
-        f"loss cuda {lg:.6f} vs cpu {lc:.6f}")
+        raise AssertionError(f"{env_id} train-step loss cuda {lg} != cpu {lc}")
+    return lg, lc
 
 
-def phase_main(torch, flood, tconfig, env_mod, learner, dueling):
+def phase_reference(torch, tconfig, env_mod, learner, dueling, gen_cpu):
+    """The port on the card against the port on the CPU, small inputs."""
     t0 = time.perf_counter()
-    ecfg = tconfig.parse_env_id(BENCH_ENV)
+    losses = {}
+    for env_id in (BENCH_ENV, "Track2D-MazeFullRPF-v0"):
+        losses[env_id] = check_train_step(
+            torch, tconfig, env_mod, learner, dueling,
+            tconfig.parse_env_id(env_id), env_id, gen_cpu)
+    ids = [i for i in tconfig.env_ids() if i.endswith("-v0")]
+    configs = [(i, tconfig.parse_env_id(i)) for i in ids]
+    configs.append(("Moore Track2D-BlockPartialRam-v0", dataclasses.replace(
+        tconfig.parse_env_id("Track2D-BlockPartialRam-v0"),
+        action_type="Moore")))
+    configs.append(("Track2D-MazePartialRPF-v0 pallas", dataclasses.replace(
+        tconfig.parse_env_id("Track2D-MazePartialRPF-v0"),
+        flood_backend="pallas")))
+    for what, ecfg in configs:
+        check_reset_steps(torch, env_mod, ecfg, gen_cpu, REFERENCE_ROWS, what)
+    loss_text = "; ".join(f"{k} loss cuda {g:.6f} vs cpu {c:.6f}"
+                          for k, (g, c) in losses.items())
+    say("reference", t0, f"reset + 3 steps bit-exact cuda vs cpu for "
+        f"{len(configs)} configs ({len(ids)} level-0 ids, Moore, RPF on "
+        f"flood_relax) at {REFERENCE_ROWS} rows; 8-step train step: "
+        f"{loss_text}")
+
+
+def reset_counts(flood) -> None:
+    for kernel in flood.KERNELS.values():
+        kernel.launches = 0
+
+
+def counts(flood) -> dict:
+    return {k.name: k.launches for k in flood.KERNELS.values()}
+
+
+def phase_main(torch, flood, tconfig, env_mod, learner, dueling, name,
+               ecfg, env_id, must_launch, must_not_launch):
+    """A trainer's path at full width; returns the timed steps' launches."""
+    t0 = time.perf_counter()
     ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
-    tcfg = tconfig.TrainConfig(env_id=BENCH_ENV, num_envs=NUM_ENVS,
+    tcfg = tconfig.TrainConfig(env_id=env_id, num_envs=NUM_ENVS,
                                reset_pool=RESET_POOL, num_steps=NUM_STEPS,
                                train_mode=0)
     env = env_mod.TrackEnv(ecfg, "cuda")
@@ -237,17 +360,18 @@ def phase_main(torch, flood, tconfig, env_mod, learner, dueling):
     state = learner.init_learner(model, env, ncfg, tcfg, gen)
     step = learner.make_train_step(model, env, ncfg, tcfg, state.opt)
     torch.cuda.synchronize()
-    say("main-init", t0, f"init_learner at {NUM_ENVS} envs")
+    say(f"{name}-init", t0, f"init_learner at {NUM_ENVS} envs, {env_id}, "
+        f"flood_backend {ecfg.flood_backend!r}")
 
     # one untimed step: the first at these shapes grows the allocator and
     # picks the cuDNN and cuBLAS algorithms
     tw = time.perf_counter()
     carry, _, _ = step(state.carry, tcfg.train_mode)
     torch.cuda.synchronize()
-    say("main-warm-up", tw, "one train step, not timed")
+    say(f"{name}-warm-up", tw, "one train step, not timed")
 
     torch.cuda.reset_peak_memory_stats()
-    flood.FLOOD_SWEEP.launches = 0
+    reset_counts(flood)
     t1 = time.perf_counter()
     losses = []
     for _ in range(TRAIN_STEPS):
@@ -255,16 +379,20 @@ def phase_main(torch, flood, tconfig, env_mod, learner, dueling):
         losses.append(metrics.loss)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    launches = flood.FLOOD_SWEEP.launches
+    launches = counts(flood)
     losses = [x.item() for x in losses]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss {losses}")
-    if launches == 0:
-        raise AssertionError("the main path never launched flood_sweep")
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if launches[must_launch] == 0:
+        raise AssertionError(f"{name} never launched {must_launch}")
+    if must_not_launch and launches[must_not_launch] != 0:
+        raise AssertionError(f"{name} launched {must_not_launch} "
+                             f"{launches[must_not_launch]} times")
     sps = TRAIN_STEPS * NUM_ENVS * NUM_STEPS / dt
-    say("main", t0, f"{TRAIN_STEPS} train steps in {dt:.3f} s: {sps:.1f} "
-        f"env-steps/s; flood_sweep launches {launches} "
-        f"({launches / TRAIN_STEPS:g} per iteration); losses {losses}; "
+    say(name, t0, f"{TRAIN_STEPS} train steps in {dt:.3f} s: {sps:.1f} "
+        f"env-steps/s; launches {launches} "
+        f"({launches[must_launch] / TRAIN_STEPS:g} {must_launch} per "
+        f"iteration); losses {losses}; "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # where an iteration's time goes: the pool, then a step on that pool
@@ -272,13 +400,50 @@ def phase_main(torch, flood, tconfig, env_mod, learner, dueling):
     t2 = time.perf_counter()
     pool = pool_fn(gen)
     torch.cuda.synchronize()
-    say("main-pool", t2, f"one reset pool of {RESET_POOL} rows "
+    say(f"{name}-pool", t2, f"one reset pool of {RESET_POOL} rows "
         "(map, spawns, floods, 512-tick tapes)")
+    # the pool's parts, in reset's order, on fresh draws
+    draws = env.draw_reset(RESET_POOL, gen)
+    parts = {}
+    t_parts = t3 = time.perf_counter()
+    maze = env_mod.maps.generate_map(ecfg, draws.map)
+    torch.cuda.synchronize()
+    parts["map"] = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    pos, goals = env_mod.maps.sample_spawns(ecfg, maze, draws.spawns)
+    torch.cuda.synchronize()
+    parts["spawns"] = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    env_mod.build_tape(ecfg, maze, pos[:, 1], goals[:, 1], draws.nav,
+                       draws.ram)
+    torch.cuda.synchronize()
+    parts["tape (floods, 512 ticks)"] = time.perf_counter() - t3
+    say(f"{name}-pool-parts", t_parts, "; ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items()))
     t3 = time.perf_counter()
     step(carry, tcfg.train_mode, (*pool, learner.init_pool_ptr(device="cuda")))
     torch.cuda.synchronize()
-    say("main-step", t3, "one train step on that pool (rollout, loss, "
+    say(f"{name}-step", t3, "one train step on that pool (rollout, loss, "
         "backward, SharedAdam)")
+    return launches
+
+
+def phase_sweep16_entry(torch, flood, mz, goals):
+    """flood_fields(variant="sweep16"), the int16 kernel's only entry point
+    (as flood_fields_pallas(variant="sweep16") is in the JAX package), on one
+    main-path pool's mazes and goals."""
+    t0 = time.perf_counter()
+    iters = 256
+    reset_counts(flood)
+    out = flood.flood_fields(mz, goals, iters, "sweep16")
+    torch.cuda.synchronize()
+    launches = counts(flood)
+    if launches["flood_sweep16"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"sweep16 entry launched {launches}")
+    if out.shape != (*goals.shape[:2], *mz.shape[1:]):
+        raise AssertionError(f"sweep16 entry gave shape {tuple(out.shape)}")
+    say("sweep16-entry", t0, f"flood_fields(variant='sweep16') on "
+        f"{mz.shape[0]}x{goals.shape[1]} fields; launches {launches}")
     return launches
 
 
@@ -307,14 +472,25 @@ def main() -> int:
     phase_build(flood)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = phase_kernel(torch, flood, maps, tconfig, gen)
+    rows, (pool_mz, pool_goals) = phase_kernel(torch, flood, maps, tconfig,
+                                               gen)
     phase_reference(torch, tconfig, env_mod, learner, dueling,
                     torch.Generator().manual_seed(0))
-    row["launches"] = phase_main(torch, flood, tconfig, env_mod, learner,
-                                 dueling)
+    main_launches = phase_main(
+        torch, flood, tconfig, env_mod, learner, dueling, "main",
+        tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep", None)
+    maze_launches = phase_main(
+        torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
+        dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
+                            flood_backend="pallas"),
+        MAZE_ENV, "flood_relax", "flood_sweep")
+    entry_launches = phase_sweep16_entry(torch, flood, pool_mz, pool_goals)
+    rows["flood_sweep"]["launches"] = main_launches["flood_sweep"]
+    rows["flood_relax"]["launches"] = maze_launches["flood_relax"]
+    rows["flood_sweep16"]["launches"] = entry_launches["flood_sweep16"]
 
     say("total", t_start)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [rows[k] for k in SOURCES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,86 @@
+"""The three CUDA flood kernels against their plain twins on the card.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+with a card and PyTorch alone (the suite's conftest.py needs JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Without a card each test skips itself. chip_smoke.py makes the same checks
+at the main paths' shapes.
+"""
+
+import pytest
+import torch
+
+from active_tracking_rl_torch import config as tconfig
+from active_tracking_rl_torch.envs import maps
+from active_tracking_rl_torch.ops import flood
+
+ENV_IDS = ["Track2D-BlockPartialNav-v0", "Track2D-BlockPartialNav-v1",
+           "Track2D-EmptyPartialNav-v0", "Track2D-MazePartialNav-v0",
+           "Track2D-MazePartialNav-v1"]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    return torch.device("cuda")
+
+
+def _inputs(env_id, rows, g, dev):
+    """Maps of the id's family from the port's generator, g free goals per
+    row with (-1,-1) pads on every third row and a wall goal on the next."""
+    cfg = tconfig.parse_env_id(env_id)
+    gen = torch.Generator(device=dev).manual_seed(len(env_id))
+    mz = maps.generate_map(cfg, maps.draw_map(cfg, rows, gen, dev))
+    s = cfg.maze_size
+    goals = maps.sample_free_cells(
+        torch.rand((rows, s * s), generator=gen, device=dev), mz, g)
+    goals[::3, -2:] = -1
+    goals[1::3, 0] = 0
+    return mz.contiguous(), goals.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ENV_IDS)
+def test_kernels_match_twins_on_the_card(env_id):
+    dev = _card()
+    for g in (16, 13, 4):
+        mz, goals = _inputs(env_id, 24, g, dev)
+        for iters in (20, 48, 256):
+            outs = {}
+            for variant in flood.VARIANTS:
+                kernel = flood.KERNELS[variant]
+                before = kernel.launches
+                outs[variant] = flood.flood_fields(mz, goals, iters, variant)
+                assert kernel.launches == before + 1
+                want = flood.PLAIN[variant](mz, goals, iters)
+                torch.testing.assert_close(outs[variant], want, rtol=0, atol=0)
+            assert torch.equal(outs["sweep16"], outs["sweep"])
+
+
+@pytest.mark.cuda
+def test_relax_kernel_runs_whole_chunks_on_the_card():
+    """iters 20 runs 32 sweeps: finite distances up to 32 on an open grid."""
+    dev = _card()
+    mz = torch.zeros((1, 24, 24), dtype=torch.uint8, device=dev)
+    goals = torch.tensor([[[0, 0], [23, 23]]], dtype=torch.int32, device=dev)
+    relax = flood.flood_fields(mz, goals, 20, "relax")
+    sweep = flood.flood_fields(mz, goals, 20, "sweep")
+    assert int(relax[relax < flood.INF].max()) == 32
+    assert int(sweep[sweep < flood.INF].max()) == 20
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_bad_inputs_on_the_card():
+    dev = _card()
+    mz = torch.zeros((2, 82, 82), dtype=torch.uint8, device=dev)
+    goals = torch.zeros((2, 3, 2), dtype=torch.int32, device=dev)
+    for kernel in flood.KERNELS.values():
+        with pytest.raises(TypeError):
+            kernel(mz.int(), goals, 48)
+        with pytest.raises(ValueError):
+            kernel(mz[:, :, :81], goals, 48)
+        with pytest.raises(ValueError):
+            kernel(torch.zeros((1, 200, 200), dtype=torch.uint8, device=dev),
+                   goals[:1], 48)

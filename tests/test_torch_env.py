@@ -167,17 +167,6 @@ def test_reset_matches_jax(env_id, fast):
     np.testing.assert_array_equal(got_obs.numpy(), np.asarray(want_obs))
 
 
-@pytest.mark.parametrize("env_id", ["Track2D-BlockPartialRPF-v0",
-                                    "Track2D-BlockPartialRam-v0",
-                                    "Track2D-BlockPartialPZR-v0"])
-def test_reset_raises_for_unported_targets(env_id):
-    """Only the Nav tape is ported; the other targets refuse to reset."""
-    cfg = tconfig.parse_env_id(env_id)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        tenv.reset(cfg, tenv.draw_reset(cfg, 1, gen, "cpu"))
-
-
 @pytest.mark.parametrize("env_id", [NAV, "Track2D-BlockPartialPZR-v0"])
 def test_step_matches_jax(env_id):
     cfg = jcfg(env_id)

@@ -1,9 +1,10 @@
 """The port's flood fill (active_tracking_rl_torch/ops/flood.py) against the
 JAX package's oracle ``envs/distance.py:distance_fields`` and the NumPy BFS
-(tests/oracles.py), bit for bit. Mirrors tests/test_flood_pallas.py.
+(tests/oracles.py), bit for bit. Mirrors tests/test_flood_pallas.py. Also the
+nvcc build of both CUDA sources, against a stub compiler.
 
-On the CPU the dispatch runs the kernel's plain twin; the CUDA kernel itself
-is held against the twin on the card by chip_smoke.py (and by
+On the CPU the dispatch runs the kernels' plain twins; the CUDA kernels
+themselves are held against their twins on the card by chip_smoke.py (and by
 test_cuda_kernel_matches_twin below when a card is present).
 """
 
@@ -134,8 +135,9 @@ def test_backend_on_cpu_is_the_twin():
 def test_dispatch_rejects_other_devices():
     m = torch.zeros((1, 82, 82), dtype=torch.uint8, device="meta")
     g = torch.zeros((1, 2, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        flood.flood_fields(m, g, 48)
+    for variant in flood.VARIANTS:
+        with pytest.raises(ValueError):
+            flood.flood_fields(m, g, 48, variant)
 
 
 def test_kernel_wrapper_never_runs_the_twin():
@@ -149,10 +151,13 @@ def test_kernel_wrapper_never_runs_the_twin():
 
 
 def test_kernel_source_builds_with_nvcc_alone():
-    """Plain C launcher for ctypes, sm_90a, no PyTorch headers."""
-    src = flood.SOURCE.read_text()
-    assert 'extern "C" int flood_sweep_launch(' in src
-    assert "torch/extension.h" not in src and "ATen" not in src
+    """Plain C launchers for ctypes, sm_90a, no PyTorch headers."""
+    for kernel in flood.KERNELS.values():
+        src = kernel.library.source.read_text()
+        assert f'extern "C" int {kernel.symbol}(' in src
+        assert "torch/extension.h" not in src and "ATen" not in src
+    assert [lib.source.name for lib in flood.LIBRARIES] == [
+        "flood_sweep.cu", "flood_relax.cu"]
     assert "arch=compute_90a,code=sm_90a" in flood.NVCC_FLAGS
     assert "-shared" in flood.NVCC_FLAGS
     assert flood.BUILD_DIR.name == "_build"
@@ -160,11 +165,13 @@ def test_kernel_source_builds_with_nvcc_alone():
 
 @pytest.fixture
 def fake_nvcc(tmp_path, monkeypatch):
-    """flood.SOURCE and BUILD_DIR in tmp_path; nvcc replaced by a stub that
-    writes its -o file. Yields the list of the stub's command lines."""
-    src = tmp_path / "flood_sweep.cu"
-    src.write_text("// kernel source")
-    monkeypatch.setattr(flood, "SOURCE", src)
+    """flood.CSRC_DIR (with both sources) and BUILD_DIR in tmp_path; nvcc
+    replaced by a stub that writes its -o file. Yields the list of the
+    stub's command lines."""
+    (tmp_path / "csrc").mkdir()
+    for lib in flood.LIBRARIES:
+        (tmp_path / "csrc" / lib.source_name).write_text("// kernel source")
+    monkeypatch.setattr(flood, "CSRC_DIR", tmp_path / "csrc")
     monkeypatch.setattr(flood, "BUILD_DIR", tmp_path / "_build")
     calls = []
 
@@ -180,29 +187,54 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("lib_is_newer", [True, False])
 def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
-    kernel = flood.FloodSweepKernel()
-    lib = kernel.build()              # nothing built yet: nvcc runs
-    assert len(fake_nvcc) == 1 and lib.read_bytes() == b"library"
-    assert kernel.build_seconds is not None
-    t = flood.SOURCE.stat().st_mtime + (10 if lib_is_newer else -10)
-    os.utime(lib, (t, t))
-    assert kernel.build() == lib
-    assert len(fake_nvcc) == (1 if lib_is_newer else 2)
-    assert (kernel.build_seconds is None) == lib_is_newer
+    for i, source in enumerate(["flood_sweep.cu", "flood_relax.cu"]):
+        library = flood.KernelLibrary(source)
+        calls = len(fake_nvcc)
+        lib = library.build()         # nothing built yet: nvcc runs
+        assert len(fake_nvcc) == calls + 1 and lib.read_bytes() == b"library"
+        assert fake_nvcc[-1][-1] == str(library.source)
+        assert lib.name == f"lib{source[:-3]}.so"
+        assert library.build_seconds is not None
+        t = library.source.stat().st_mtime + (10 if lib_is_newer else -10)
+        os.utime(lib, (t, t))
+        assert library.build() == lib
+        assert len(fake_nvcc) == calls + (1 if lib_is_newer else 2)
+        assert (library.build_seconds is None) == lib_is_newer
+
+
+def test_each_library_rebuilds_for_its_own_source_only(fake_nvcc):
+    """Touching one source rebuilds its library and reuses the other."""
+    sweep, relax = flood.KernelLibrary("flood_sweep.cu"), \
+        flood.KernelLibrary("flood_relax.cu")
+    libs = [sweep.build(), relax.build()]
+    for lib in libs:
+        os.utime(lib, (1e9 + 20, 1e9 + 20))
+    os.utime(sweep.source, (1e9, 1e9))
+    os.utime(relax.source, (1e9 + 40, 1e9 + 40))   # newer than its library
+    assert len(fake_nvcc) == 2
+    sweep.build()
+    relax.build()
+    assert len(fake_nvcc) == 3 and fake_nvcc[-1][-1] == str(relax.source)
+    assert sweep.build_seconds is None and relax.build_seconds is not None
 
 
 def test_smoke_build_phase_reports_a_reused_library(fake_nvcc, monkeypatch,
                                                     capsys):
-    """chip_smoke.py's build line, run twice in one checkout."""
+    """chip_smoke.py's build line, run twice in one checkout: one nvcc per
+    source, started together, then both libraries reused."""
     import chip_smoke
-    monkeypatch.setattr(flood, "FLOOD_SWEEP", flood.FloodSweepKernel())
+    monkeypatch.setattr(flood, "LIBRARIES", (
+        flood.KernelLibrary("flood_sweep.cu"),
+        flood.KernelLibrary("flood_relax.cu")))
     chip_smoke.phase_build(flood)
-    assert "nvcc" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert out.count("nvcc") == 2 and "reused" not in out
     chip_smoke.phase_build(flood)
-    assert "reused" in capsys.readouterr().out
-    assert len(fake_nvcc) == 1
+    assert capsys.readouterr().out.count("reused") == 2
+    assert len(fake_nvcc) == 2
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_twin():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
@@ -211,7 +243,9 @@ def test_cuda_kernel_matches_twin():
         m = torch.from_numpy(MAPS[name])[None].repeat(3, 1, 1)
         goals = torch.from_numpy(np.stack(
             [_goals_with_pads(MAPS[name], 13, s) for s in range(3)]))
-        for iters in (48, 256):
-            want = flood.flood_fields_plain(m, goals, iters)
-            got = flood.flood_fields(m.cuda(), goals.cuda(), iters).cpu()
-            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        for iters in (20, 48, 256):
+            for variant in flood.VARIANTS:
+                want = flood.PLAIN[variant](m, goals, iters)
+                got = flood.flood_fields(m.cuda(), goals.cuda(), iters,
+                                         variant).cpu()
+                np.testing.assert_array_equal(got.numpy(), want.numpy())

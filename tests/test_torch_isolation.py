@@ -1,0 +1,51 @@
+"""The port imports no JAX and nothing of the JAX package.
+
+In a fresh interpreter, an import hook refuses jax, jaxlib, flax, optax,
+chex and active_tracking_rl_tpu; then every module of
+active_tracking_rl_torch and chip_smoke.py are imported. The card's machine
+has none of those packages, so an import of one would fail there.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib
+import importlib.abc
+import pkgutil
+import sys
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "active_tracking_rl_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+for name in list(sys.modules):
+    if name.split(".")[0] in BANNED:
+        raise SystemExit(f"{name} was imported before the hook")
+
+import active_tracking_rl_torch
+
+names = ["chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(active_tracking_rl_torch.__path__,
+                                          "active_tracking_rl_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names), "modules")
+"""
+
+
+def test_port_and_smoke_import_no_jax():
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[0]) > 20

@@ -20,11 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from active_tracking_rl_tpu.envs.maps import maze_loop_bounds
 from active_tracking_rl_tpu.envs.types import EnvState as JaxEnvState
 from active_tracking_rl_torch.config import EnvConfig as TorchEnvConfig
 from active_tracking_rl_torch.envs.env import ResetDraws
 from active_tracking_rl_torch.envs.maps import MapDraws, SpawnDraws
-from active_tracking_rl_torch.envs.opponents import NavDraws
+from active_tracking_rl_torch.envs.opponents import NavDraws, RamDraws
 from active_tracking_rl_torch.envs.types import EnvState
 
 torch.set_num_threads(1)
@@ -38,10 +39,39 @@ def torch_cfg(jax_cfg) -> TorchEnvConfig:
 
 
 def _map_draws(cfg, key):
-    """generate_block_map(cfg, key)."""
-    k_ratio, k_perm = jax.random.split(key)
-    return dict(obstacle_u=jax.random.uniform(k_ratio),
-                perm=jax.random.permutation(k_perm, (cfg.maze_size - 2) ** 2))
+    """generate_map(cfg, key): the Block permutation or the Maze walk's draws.
+
+    The walk's step draw is randint(k, (), 0, m) with m the number of valid
+    neighbours; it is made here for each m in 2, 3, 4 from the same key.
+    """
+    k_ratio, k_rest = jax.random.split(key)
+    u = jax.random.uniform(k_ratio)
+    if cfg.map_type != "Maze":
+        return dict(ratio_u=u, perm=jax.random.permutation(
+            k_rest, (cfg.maze_size - 2) ** 2))
+    max_complexity, max_density = maze_loop_bounds(cfg)
+    half = cfg.maze_size // 2
+    outer = jax.random.split(k_rest, 2 * max_density).reshape(
+        max_density, 2, -1)
+
+    def start(k_xy):
+        kx, ky = jax.random.split(k_xy)
+        return jnp.stack([jax.random.randint(ky, (), 0, half + 1),
+                          jax.random.randint(kx, (), 0, half + 1)])
+
+    def picks(k_inner):
+        ks = jax.random.split(k_inner, max_complexity)
+        return jnp.stack([jax.vmap(lambda k: jax.random.randint(k, (), 0, m))(ks)
+                          for m in (2, 3, 4)], axis=-1)
+
+    return dict(ratio_u=u, walk_start=jax.vmap(start)(outer[:, 0]),
+                walk_pick=jax.vmap(picks)(outer[:, 1]))
+
+
+def _map(d) -> MapDraws:
+    return MapDraws(d["ratio_u"], *(d[k].long() if k in d else None
+                                    for k in ("perm", "walk_start",
+                                              "walk_pick")))
 
 
 def _spawn_draws(cfg, key):
@@ -57,22 +87,52 @@ def _spawn_draws(cfg, key):
 
 
 def _nav_draws(cfg, key):
-    """nav_tape(cfg, key, ...): candidates from k_cand, planB from k_scan."""
+    """nav_tape(cfg, key, ...): candidates from k_cand (Nav), planB from
+    k_scan."""
     cells = cfg.maze_size ** 2
     k_cand, k_scan = jax.random.split(key)
-    return dict(
-        candidates=jax.vmap(lambda k: jax.random.gumbel(k, (cells,)))(
-            jax.random.split(k_cand, cfg.nav_goal_candidates - 1)),
-        planb=jax.vmap(lambda k: jax.random.randint(
-            k, (), 0, cfg.num_actions, jnp.int8))(
-                jax.random.split(k_scan, cfg.tape_len)))
+    d = dict(planb=jax.vmap(lambda k: jax.random.randint(
+        k, (), 0, cfg.num_actions, jnp.int8))(
+            jax.random.split(k_scan, cfg.tape_len)))
+    if cfg.target_mode == "Nav":
+        d["candidates"] = jax.vmap(lambda k: jax.random.gumbel(k, (cells,)))(
+            jax.random.split(k_cand, cfg.nav_goal_candidates - 1))
+    return d
+
+
+def _ram_draws(cfg, key):
+    """ram_tape(cfg, key): the first burst, then four draws per tick."""
+    na = cfg.num_actions
+    k_init, k_scan = jax.random.split(key)
+    ki1, ki2 = jax.random.split(k_init)
+
+    def tick(k):
+        kc, ka, kn, kp = jax.random.split(k, 4)
+        return (jax.random.randint(kc, (), 0, 2),
+                jax.random.randint(ka, (), 0, na, jnp.int8),
+                jax.random.randint(kn, (), 1, 10, jnp.int32),
+                jax.random.randint(kp, (9,), 0, na, jnp.int8))
+
+    coin, burst, length, plan = jax.vmap(tick)(
+        jax.random.split(k_scan, cfg.tape_len))
+    return dict(plan0=jax.random.randint(ki1, (9,), 0, na, jnp.int8),
+                len0=jax.random.randint(ki2, (), 1, 10, jnp.int32),
+                coin=coin, burst=burst, length=length, plan=plan)
+
+
+def _tape_draws(cfg, key):
+    if cfg.target_mode in ("Nav", "RPF"):
+        return _nav_draws(cfg, key)
+    if cfg.target_mode == "Ram":
+        return _ram_draws(cfg, key)
+    return {}
 
 
 def _reset_draws(cfg, key):
     """reset(cfg, key): map, spawns and tape keys split three ways."""
     k_map, k_spawn, k_tape = jax.random.split(key, 3)
     return {**_map_draws(cfg, k_map), **_spawn_draws(cfg, k_spawn),
-            **_nav_draws(cfg, k_tape)}
+            **_tape_draws(cfg, k_tape)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,8 +145,7 @@ def _torch(d):
 
 
 def map_draws(jax_cfg, keys) -> MapDraws:
-    d = _torch(_batched(_map_draws, jax_cfg)(keys))
-    return MapDraws(d["obstacle_u"], d["perm"].long())
+    return _map(_torch(_batched(_map_draws, jax_cfg)(keys)))
 
 
 def spawn_draws(jax_cfg, keys) -> SpawnDraws:
@@ -94,19 +153,30 @@ def spawn_draws(jax_cfg, keys) -> SpawnDraws:
     return SpawnDraws(d["tracker"], d["goals"], d["retry"], d["target"])
 
 
+def _nav(d) -> NavDraws:
+    return NavDraws(d.get("candidates"), d["planb"])
+
+
+def _ram(d) -> RamDraws:
+    return RamDraws(*(d[f] for f in RamDraws.__dataclass_fields__))
+
+
 def nav_draws(jax_cfg, keys) -> NavDraws:
-    d = _torch(_batched(_nav_draws, jax_cfg)(keys))
-    return NavDraws(d["candidates"], d["planb"])
+    return _nav(_torch(_batched(_nav_draws, jax_cfg)(keys)))
+
+
+def ram_draws(jax_cfg, keys) -> RamDraws:
+    return _ram(_torch(_batched(_ram_draws, jax_cfg)(keys)))
 
 
 def reset_draws(jax_cfg, keys) -> ResetDraws:
     """The draws `reset(cfg, key)` makes for each key of `keys` (n, 2)."""
     d = _torch(_batched(_reset_draws, jax_cfg)(keys))
-    nav = (NavDraws(d["candidates"], d["planb"])
-           if jax_cfg.target_mode == "Nav" else None)
-    return ResetDraws(MapDraws(d["obstacle_u"], d["perm"].long()),
-                      SpawnDraws(d["tracker"], d["goals"], d["retry"],
-                                 d["target"]), nav)
+    mode = jax_cfg.target_mode
+    return ResetDraws(
+        _map(d), SpawnDraws(d["tracker"], d["goals"], d["retry"], d["target"]),
+        nav=_nav(d) if mode in ("Nav", "RPF") else None,
+        ram=_ram(d) if mode == "Ram" else None)
 
 
 def batch_draws(jax_cfg, key, n: int) -> ResetDraws:
