@@ -6,8 +6,9 @@ and numpy only. Entry points take an explicit ``device`` (default
 ``"cuda"``); every function that uses randomness takes its draws as tensors
 at a seam, produced in production by a ``torch.Generator``.
 
-The one hand-written kernel is the fast-sweep BFS flood fill
-(``csrc/flood_sweep.cu``, bound in ``ops/flood.py``).
+The hand-written kernels are the BFS flood fills, bound in ``ops/flood.py``:
+a bit-parallel frontier BFS (``csrc/flood_bfs.cu``) for the sweep and relax
+variants, and the int16 fast sweep (``csrc/flood_sweep.cu``).
 """
 
 __version__ = "0.1.0"

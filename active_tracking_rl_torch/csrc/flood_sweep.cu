@@ -1,29 +1,30 @@
-// Exact 4-connected BFS distance fields by fast sweeping, one field per block.
+// Exact 4-connected BFS distance fields by fast sweeping with an int16
+// carry, one field per block.
 //
 // Replaces the TPU kernel `_sweep_kernel` reached through
-// `flood_fields_pallas(variant="sweep")` (int32 carry) and
-// `flood_fields_pallas(variant="sweep16")` (int16 carry) in
-// active_tracking_rl_tpu/ops/flood_pallas.py. Contract (the same as the
-// iteration-capped relaxation `distance_fields` in envs/distance.py of both
-// packages): mazes (N, S, S) uint8 (nonzero = wall), goals (N, G, 2) int32
-// (row, col); out (N, G, S, S) int16 holds the BFS distance to the goal where
-// it is <= cap, and INF = 16000 elsewhere, at walls, and for every cell of a
-// field whose goal is off the grid or on a wall (a (-1, -1) pad row).
+// `flood_fields_pallas(variant="sweep16")` (its int16 carry) in
+// active_tracking_rl_tpu/ops/flood_pallas.py:84 (call :273). The int32
+// variant, `variant="sweep"`, runs on csrc/flood_bfs.cu instead. Contract
+// (the same as the iteration-capped relaxation `distance_fields` in
+// envs/distance.py of both packages): mazes (N, S, S) uint8 (nonzero =
+// wall), goals (N, G, 2) int32 (row, col); out (N, G, S, S) int16 holds the
+// BFS distance to the goal where it is <= cap, and INF = 16000 elsewhere, at
+// walls, and for every cell of a field whose goal is off the grid or on a
+// wall (a (-1, -1) pad row).
 //
 // Design. One thread block per field keeps the (S, S) field and the wall
-// mask in shared memory for the whole solve. The field's type T is the
-// carry: int32 (82 * 82 * 5 B = 33.6 KB at S = 82) or int16 (3 B a cell,
-// 20.2 KB). Arithmetic is done in int either way and a value is stored only
-// when it is prev + 1 < cur <= INF, so the int16 carry cannot overflow and
-// both carries give the same fields. A round is four Gauss-Seidel passes:
-// down every column, up every column, right along every row, left along
-// every row. Each pass gives one thread to one line and scans it in
-// sequence, d = min(d, prev + 1) on free cells, so one pass carries a
-// distance along a whole straight run. A shortest path with z turns is exact
-// after about z / 2 + 1 rounds. The block stops after the first round that
-// changes nothing (or after max_rounds), applies the cap and writes int16.
-// The pass order is the TPU kernel's (axis 1 forward and back, then axis 2),
-// so even a field stopped by max_rounds matches it.
+// mask in shared memory for the whole solve, the field in int16 (3 B a
+// cell with the mask: 20.2 KB at S = 82). Arithmetic is done in int and a
+// value is stored only when it is prev + 1 < cur <= INF, so the int16 carry
+// cannot overflow. A round is four Gauss-Seidel passes: down every column,
+// up every column, right along every row, left along every row. Each pass
+// gives one thread to one line and scans it in sequence, d = min(d, prev +
+// 1) on free cells, so one pass carries a distance along a whole straight
+// run. A shortest path with z turns is exact after about z / 2 + 1 rounds.
+// The block stops after the first round that changes nothing (or after
+// max_rounds), applies the cap and writes int16. The pass order is the TPU
+// kernel's (axis 1 forward and back, then axis 2), so even a field stopped
+// by max_rounds matches it.
 //
 // What bounds it on an H100. The least work is the output: N * G * S * S
 // int16 values, 110 MB per pool refresh at 512 rows x 16 goals x 82^2, which
@@ -33,12 +34,12 @@
 // memory sees only that one write and the one read of the maze. What it does
 // not yet do is hide the serial scans: each pass is S dependent shared-memory
 // steps on 82 of the block's 96 threads, so the kernel is latency-bound far
-// above the byte bound (PERF.md has the measured time). The int16 carry
-// frees shared memory for more resident blocks. Speed is later work.
+// above the byte bound (PERF.md has the measured time). Its redesign is to
+// run this variant on csrc/flood_bfs.cu too (ROADMAP.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (see ops/flood.py). No PyTorch
-// headers: the launchers have a plain C interface and are loaded with ctypes.
+// headers: the launcher has a plain C interface and is loaded with ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -139,15 +140,8 @@ int launch(const void* maze, const void* goals, void* out, int n, int g, int s,
 
 }  // namespace
 
-// Each launches N * G blocks on `stream` and returns cudaGetLastError()
-// (0 = ok). `flood_sweep_launch` carries the field in int32 (variant
-// "sweep"), `flood_sweep16_launch` in int16 (variant "sweep16").
-extern "C" int flood_sweep_launch(const void* maze, const void* goals, void* out,
-                                  int n, int g, int s, int cap, int max_rounds,
-                                  void* stream) {
-  return launch<int32_t>(maze, goals, out, n, g, s, cap, max_rounds, stream);
-}
-
+// Launches N * G blocks on `stream` and returns cudaGetLastError() (0 = ok);
+// the field is carried in int16 (variant "sweep16").
 extern "C" int flood_sweep16_launch(const void* maze, const void* goals,
                                     void* out, int n, int g, int s, int cap,
                                     int max_rounds, void* stream) {

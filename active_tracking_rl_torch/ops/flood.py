@@ -7,12 +7,15 @@ those of ``flood_fields_pallas`` in ``active_tracking_rl_tpu/ops/flood_pallas.py
 
 * ``"sweep"`` and ``"sweep16"``: the BFS distance where it is <= iters, INF
   elsewhere (the contract of the iteration-capped relaxation
-  ``active_tracking_rl_tpu/envs/distance.py:distance_fields``). Kernel:
-  ``csrc/flood_sweep.cu`` with an int32 or an int16 carry (the TPU kernel
-  ``_sweep_kernel``). Twin: ``flood_fields_plain``.
+  ``active_tracking_rl_tpu/envs/distance.py:distance_fields``; the TPU
+  kernel ``_sweep_kernel`` with an int32 or an int16 carry). Kernels:
+  ``csrc/flood_bfs.cu`` (a bit-parallel frontier BFS capped at iters) and
+  ``csrc/flood_sweep.cu`` (fast sweeping, int16 carry). Twin:
+  ``flood_fields_plain``.
 * ``"relax"``: synchronous relaxation in chunks of 16 sweeps, so up to
-  ceil(iters / 16) * 16 sweeps, as the TPU kernel ``_relax_kernel`` runs.
-  Kernel: ``csrc/flood_relax.cu``. Twin: ``flood_fields_relax_plain``.
+  ceil(iters / 16) * 16 sweeps, as the TPU kernel ``_relax_kernel`` runs;
+  from one seed that is the BFS capped at ceil(iters / 16) * 16. Kernel:
+  ``csrc/flood_bfs.cu`` under that cap. Twin: ``flood_fields_relax_plain``.
 
 On a CPU tensor ``flood_fields`` runs the variant's twin. On a CUDA tensor it
 launches the variant's kernel or raises; it never falls back to the twin.
@@ -40,20 +43,23 @@ import torch.nn.functional as F
 #: "unreachable" distance; fits int16 with headroom for +1 relaxation adds.
 INF = 16000
 
-#: fast-sweep round cap (each round handles about two more turns of a path);
-#: 2x headroom over the ~65 rounds a 256-step path can need.
+#: flood_sweep16's round cap (each round handles about two more turns of a
+#: path); 2x headroom over the ~65 rounds a 256-step path can need.
 MAX_ROUNDS = 128
 
 #: sweeps per convergence check of the relaxation kernel.
 CHECK_EVERY = 16
+
+#: the largest side the kernels take: the BFS kernel's rows are at most 4
+#: words, and the fast sweep's field and wall mask (3 bytes a cell) fit the
+#: 48 KB a block holds without opting in for more.
+MAX_SIDE = 128
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-#: a block may use 48 KB of shared memory without opting in for more.
-_SMEM_LIMIT = 48 * 1024
 
 VARIANTS = ("relax", "sweep", "sweep16")
 
@@ -91,12 +97,18 @@ def flood_fields_plain(maze: torch.Tensor, goals: torch.Tensor,
     return d
 
 
+def relax_cap(iters: int) -> int:
+    """The sweeps `_relax_kernel` runs: whole CHECK_EVERY-sweep chunks while
+    fewer than `iters` have run. From one seed that many sweeps give the BFS
+    capped there (csrc/flood_bfs.cu derives it)."""
+    return max(0, -(-iters // CHECK_EVERY)) * CHECK_EVERY
+
+
 def flood_fields_relax_plain(maze: torch.Tensor, goals: torch.Tensor,
                              iters: int) -> torch.Tensor:
     """The relaxation kernel's plain twin: the same sweeps, `iters` rounded
     up to a whole number of CHECK_EVERY-sweep chunks."""
-    chunks = max(0, -(-iters // CHECK_EVERY))
-    return flood_fields_plain(maze, goals, chunks * CHECK_EVERY)
+    return flood_fields_plain(maze, goals, relax_cap(iters))
 
 
 class KernelLibrary:
@@ -159,13 +171,12 @@ class FloodKernel:
     """ctypes binding of one flood launcher, with its launch count."""
 
     def __init__(self, name: str, library: KernelLibrary, symbol: str,
-                 smem_bytes, extra: int) -> None:
+                 extra: int) -> None:
         self.name = name
         self.library = library
         self.symbol = symbol
-        #: shared memory one block holds for side S.
-        self.smem_bytes = smem_bytes
-        #: the launcher's last int: the round cap or the check cadence.
+        #: the launcher's last int: the round cap, the check cadence, or 0
+        #: where the launcher reads none.
         self.extra = extra
         #: launches of the kernel, counted where it launches and nowhere else.
         self.launches = 0
@@ -186,9 +197,8 @@ class FloodKernel:
             raise ValueError(f"{name} takes (N,S,S) mazes and (N,G,2) goals, "
                              f"got {tuple(maze.shape)} and "
                              f"{tuple(goals.shape)}")
-        if self.smem_bytes(s) > _SMEM_LIMIT:
-            raise ValueError(f"{name} holds {self.smem_bytes(s)} bytes of "
-                             f"shared memory a block; S={s} is too large")
+        if not 1 <= s <= MAX_SIDE:
+            raise ValueError(f"{name} takes sides 1 to {MAX_SIDE}, got S={s}")
         if not (maze.is_contiguous() and goals.is_contiguous()):
             raise ValueError(f"{name} takes contiguous tensors")
         g = goals.shape[1]
@@ -205,18 +215,17 @@ class FloodKernel:
         return out
 
 
+BFS_LIB = KernelLibrary("flood_bfs.cu")
 SWEEP_LIB = KernelLibrary("flood_sweep.cu")
-RELAX_LIB = KernelLibrary("flood_relax.cu")
-LIBRARIES = (SWEEP_LIB, RELAX_LIB)
+LIBRARIES = (BFS_LIB, SWEEP_LIB)
 
 #: the process's one binding of each kernel; chip_smoke.py reads their
 #: `launches` to show that a path went through them.
-FLOOD_SWEEP = FloodKernel("flood_sweep", SWEEP_LIB, "flood_sweep_launch",
-                          lambda s: s * s * 5, MAX_ROUNDS)
+FLOOD_SWEEP = FloodKernel("flood_sweep", BFS_LIB, "flood_sweep_launch", 0)
 FLOOD_SWEEP16 = FloodKernel("flood_sweep16", SWEEP_LIB, "flood_sweep16_launch",
-                            lambda s: s * s * 3, MAX_ROUNDS)
-FLOOD_RELAX = FloodKernel("flood_relax", RELAX_LIB, "flood_relax_launch",
-                          lambda s: (s + 2) ** 2 * 5, CHECK_EVERY)
+                            MAX_ROUNDS)
+FLOOD_RELAX = FloodKernel("flood_relax", BFS_LIB, "flood_relax_launch",
+                          CHECK_EVERY)
 
 KERNELS = {"sweep": FLOOD_SWEEP, "sweep16": FLOOD_SWEEP16,
            "relax": FLOOD_RELAX}

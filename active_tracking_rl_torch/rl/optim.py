@@ -33,40 +33,47 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 
 
 class SharedAdam(torch.optim.Optimizer):
-    """The reference SharedAdam (weight decay 0), with gradient clipping."""
+    """The reference SharedAdam (weight decay 0), with gradient clipping.
+
+    Every parameter it holds steps on every `step()`, under one step count
+    per group, as the JAX package's one optax state does. A parameter
+    without a gradient (one whose player the loss's mode leaves out, so
+    autograd gave it None) steps with a zero gradient: its moments decay
+    and its momentum still moves it.
+    """
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-3, amsgrad: bool = True,
                  grad_clip: float = 50.0):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      amsgrad=amsgrad, grad_clip=grad_clip))
+                                      amsgrad=amsgrad, grad_clip=grad_clip,
+                                      step=0))
 
     @torch.no_grad()
     def step(self, closure=None):
         assert closure is None
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            grads = [p.grad for p in params]
+            params = group["params"]
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
             clip_by_global_norm_(grads, group["grad_clip"])
             b1, b2 = group["betas"]
+            group["step"] += 1
+            # bias corrections in float32, as the JAX package computes them
+            t = torch.tensor(float(group["step"]), dtype=torch.float32)
+            step_size = float(group["lr"] * torch.sqrt(1 - b2 ** t)
+                              / (1 - b1 ** t))
             for p, g in zip(params, grads):
                 st = self.state[p]
                 if not st:
-                    st["step"] = 0
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
                     st["max_exp_avg_sq"] = torch.zeros_like(p)
-                st["step"] += 1
                 m = st["exp_avg"].mul_(b1).add_((1 - b1) * g)
                 v = st["exp_avg_sq"].mul_(b2).add_((1 - b2) * (g * g))
                 vmax = torch.maximum(st["max_exp_avg_sq"], v,
                                      out=st["max_exp_avg_sq"])
                 denom = vmax if group["amsgrad"] else v
-                # bias corrections in float32, as the JAX package computes them
-                t = torch.tensor(float(st["step"]), dtype=torch.float32)
-                bias1 = 1 - b1 ** t
-                bias2 = 1 - b2 ** t
-                step_size = float(group["lr"] * torch.sqrt(bias2) / bias1)
                 p.add_(-step_size * m / (torch.sqrt(denom) + group["eps"]))
 
 

@@ -7,15 +7,21 @@ Run from the root of the repository, with no install step:
 
 Phases (each prints one line with its seconds):
   1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`;
-  2. build: compiles csrc/flood_sweep.cu and csrc/flood_relax.cu with nvcc,
-     one process per source, started together (plain C interface, ctypes);
+  2. build: compiles csrc/flood_bfs.cu (flood_sweep and flood_relax) and
+     csrc/flood_sweep.cu (flood_sweep16) with nvcc, one process per source,
+     started together (plain C interface, ctypes); prints ptxas's registers,
+     shared memory and spills for each kernel;
   3. kernel: each flood kernel (flood_sweep, flood_sweep16, flood_relax)
      against its plain PyTorch twin on the card, bit for bit, on 512 mazes
      at S=82 (Block maps of two densities, Empty maps) and on mazes of side
      81 (perfect mazes and the port's own maze walk), with 16, 13 and 4 goals
      with (-1,-1) pads and goals on walls, at iters 20, 48 and 256 (20 pins
-     the relaxation's whole 16-sweep chunks); flood_sweep16 must also equal
-     flood_sweep; prints each kernel's, its twin's and its bound's time;
+     the relaxation's whole 16-sweep chunks); then the caps: iters 0, 1, 15,
+     16, 17, 255 and 256 on the perfect mazes, whose paths are far longer
+     than 256, and a case at S=24 and at S=128, the BFS kernel's largest
+     side; flood_sweep16 must also equal flood_sweep; prints each kernel's,
+     its twin's and its bound's time, and the depth of the timed fields
+     (for the BFS kernels also the levels that their output implies);
   4. reference: the port on the card against the port on the CPU (where the
      floods are the plain twins): reset and 3 steps bit for bit (float state
      to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
@@ -25,15 +31,18 @@ Phases (each prints one line with its seconds):
   5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
      maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
      refreshed every iteration, 20 steps: init_learner, one untimed warm-up
-     step, then 3 timed train steps; the loss must be finite and flood_sweep
-     must have been launched in the timed steps; prints their (warm)
+     step, then 3 timed train steps; the loss must be finite, flood_sweep
+     must have been launched in the timed steps and flood_relax and
+     flood_sweep16 must not; prints their (warm)
      env-steps/s, then the time of one reset pool, of its parts (map,
      spawns, tape with its floods) and of one train step on a given pool;
   6. maze-main: the same on Track2D-MazePartialNav-v0 with flood_backend
-     "pallas": flood_relax must be launched and flood_sweep must not;
+     "pallas": flood_relax must be launched, flood_sweep and flood_sweep16
+     must not;
   7. sweep16-entry: flood_fields(variant="sweep16"), the int16 kernel's only
      entry point, on one main-path reset pool's mazes and goals.
-Then one JSON line with the kernel table, the card's line from nvidia-smi,
+Then one JSON line with the kernel table (the BFS kernels' rows also
+carry their implied levels), the card's line from nvidia-smi,
 and the last line {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without the last line.
 """
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -58,37 +68,19 @@ NUM_ENVS, RESET_POOL, NUM_STEPS, TRAIN_STEPS = 4096, 512, 20, 3
 #: rows of each id's card-vs-CPU reset check
 REFERENCE_ROWS = 8
 
-SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_sweep.cu",
+SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_sweep16": "active_tracking_rl_torch/csrc/flood_sweep.cu",
-           "flood_relax": "active_tracking_rl_torch/csrc/flood_relax.cu"}
+           "flood_relax": "active_tracking_rl_torch/csrc/flood_bfs.cu"}
 REPLACES = {"flood_sweep": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
             "flood_sweep16": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
             "flood_relax": "active_tracking_rl_tpu/ops/flood_pallas.py:41"}
+#: the kernels that run the bit-parallel BFS of csrc/flood_bfs.cu
+BFS_KERNELS = ("flood_sweep", "flood_relax")
 
 
 def say(phase: str, t0: float, msg: str = "") -> None:
     print(f"[{phase}] {time.perf_counter() - t0:.3f} s {msg}".rstrip(),
           flush=True)
-
-
-def perfect_maze(side: int, rng: np.random.RandomState) -> np.ndarray:
-    """A maze with exactly one path between any two free cells."""
-    m = np.ones((side, side), np.uint8)
-    m[1, 1] = 0
-    stack = [(1, 1)]
-    while stack:
-        r, c = stack[-1]
-        nbrs = [(r + dr, c + dc) for dr, dc in ((-2, 0), (2, 0), (0, -2), (0, 2))
-                if 0 < r + dr < side - 1 and 0 < c + dc < side - 1
-                and m[r + dr, c + dc] == 1]
-        if not nbrs:
-            stack.pop()
-            continue
-        nr, nc = nbrs[rng.randint(len(nbrs))]
-        m[(r + nr) // 2, (c + nc) // 2] = 0
-        m[nr, nc] = 0
-        stack.append((nr, nc))
-    return m
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -113,8 +105,11 @@ def phase_build(flood) -> None:
         if lib.build_seconds is None:
             say("build", t0, f"reused {lib.path} (newer than its source)")
             continue
-        ptxas = " | ".join(line.strip() for line in lib.build_log.splitlines()
-                           if "registers" in line or "smem" in line)
+        # per kernel: its entry, stack and spills, registers and smem
+        ptxas = " | ".join(
+            line.replace("ptxas info    :", "").strip()
+            for line in lib.build_log.splitlines()
+            if any(k in line for k in ("entry", "spill", "registers")))
         say("build", t0, f"{lib.source.name}: nvcc "
             f"{lib.build_seconds:.2f} s; {ptxas}")
 
@@ -131,8 +126,37 @@ def bound(mz, goals, out, inf):
         else "operations"
 
 
+def depth(torch, out, inf, cap=None):
+    """Depth statistics of fields (N, G, S, S): the mean and the largest
+    finite distance per field and, given the BFS kernel's cap, the levels
+    that the output implies it ran per field (a field D deep runs D + 1
+    levels, the last finding nothing, or stops at the cap; a field with no
+    seed runs 1). The kernel counts no levels itself."""
+    f = out.flatten(2).int()
+    finite = f < inf
+    seeded = finite.any(-1)
+    far = torch.where(finite, f, -1).amax(-1)
+    mean = (torch.where(finite, f, 0).sum(-1).double()
+            / finite.sum(-1).clamp_min(1))
+    stats = dict(
+        fields=int(f.shape[0] * f.shape[1]), seeded=int(seeded.sum()),
+        mean_dist=float(mean[seeded].mean()),
+        mean_max_dist=float(far[seeded].double().mean()),
+        max_dist=int(far.max()))
+    if cap is not None:
+        levels = torch.where(seeded, torch.clamp(far + 1, max=cap), 1)
+        stats.update(implied_levels_mean=float(levels.double().mean()),
+                     implied_levels_max=int(levels.max()))
+    return stats
+
+
 def phase_kernel(torch, flood, maps, tconfig, gen):
     """Each kernel against its twin, bit for bit; the kernels' table rows."""
+    # by file path: an installed package named `tests` may shadow the
+    # repository's tests/ directory, which is no package
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from torch_mazes import perfect_maze
+
     t0 = time.perf_counter()
     dev = torch.device("cuda")
 
@@ -149,49 +173,88 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
             torch.rand((mz.shape[0], s * s), generator=gen, device=dev),
             mz, g).contiguous()
 
+    def padded(goals, g):
+        goals = goals[:, :g].clone()
+        goals[::3, -2:] = -1                  # (-1,-1) pads
+        goals[1::3, 0] = 0                    # a goal on the border wall
+        return goals
+
+    errs = {name: 0 for name in SOURCES}
+
+    def check(mz, goals, iters):
+        """Every kernel once against its twin, bit for bit."""
+        want = {"sweep": flood.flood_fields_plain(mz, goals, iters),
+                "relax": flood.flood_fields_relax_plain(mz, goals, iters)}
+        got = {v: flood.KERNELS[v](mz, goals, iters) for v in flood.VARIANTS}
+        torch.cuda.synchronize()
+        for v, out in got.items():
+            ref = want["relax" if v == "relax" else "sweep"]
+            err = int((out.int() - ref.int()).abs().max())
+            name = flood.KERNELS[v].name
+            errs[name] = max(errs[name], err)
+            if err != 0:
+                raise AssertionError(
+                    f"{name} != twin: S={mz.shape[-1]} G={goals.shape[1]} "
+                    f"iters={iters} max_abs_err={err}")
+        if not torch.equal(got["sweep16"], got["sweep"]):
+            raise AssertionError(f"flood_sweep16 != flood_sweep: "
+                                 f"S={mz.shape[-1]} G={goals.shape[1]} "
+                                 f"iters={iters}")
+
     mazes82 = torch.cat([
         pool_maps("Track2D-BlockPartialNav-v0", 171, u=1.0),  # 15% walls
         pool_maps("Track2D-BlockPartialNav-v1", 171),          # 5% walls
         pool_maps("Track2D-EmptyPartialNav-v0", 170)]).contiguous()
     rng = np.random.RandomState(0)
+    perfect81 = torch.from_numpy(np.stack([perfect_maze(81, rng)
+                                           for _ in range(16)])).to(dev)
     mazes81 = torch.cat([
-        torch.from_numpy(np.stack([perfect_maze(81, rng)
-                                   for _ in range(16)])).to(dev),
+        perfect81,
         pool_maps("Track2D-MazePartialNav-v0", 48),
         pool_maps("Track2D-MazePartialNav-v1", 48)]).contiguous()
 
-    errs = {name: 0 for name in SOURCES}
     cases = 0
     for mz in (mazes82, mazes81):
         goals16 = free_goals(mz, 16)
         for g in (16, 13, 4):
-            goals = goals16[:, :g].clone()
-            goals[::3, -2:] = -1                  # (-1,-1) pads
-            goals[1::3, 0] = 0                    # a goal on the border wall
             for iters in (20, 48, 256):
-                want = {"sweep": flood.flood_fields_plain(mz, goals, iters),
-                        "relax": flood.flood_fields_relax_plain(mz, goals,
-                                                                iters)}
-                got = {v: flood.KERNELS[v](mz, goals, iters)
-                       for v in flood.VARIANTS}
-                torch.cuda.synchronize()
-                for v, out in got.items():
-                    ref = want["relax" if v == "relax" else "sweep"]
-                    err = int((out.int() - ref.int()).abs().max())
-                    name = flood.KERNELS[v].name
-                    errs[name] = max(errs[name], err)
-                    if err != 0:
-                        raise AssertionError(
-                            f"{name} != twin: S={mz.shape[-1]} G={g} "
-                            f"iters={iters} max_abs_err={err}")
-                if not torch.equal(got["sweep16"], got["sweep"]):
-                    raise AssertionError(f"flood_sweep16 != flood_sweep: "
-                                         f"S={mz.shape[-1]} G={g} "
-                                         f"iters={iters}")
+                check(mz, padded(goals16, g), iters)
                 cases += 1
     say("kernel", t0, f"{cases} cases: flood_sweep, flood_sweep16 and "
         f"flood_relax == their twins bit for bit; flood_sweep16 == "
         f"flood_sweep")
+
+    # the caps: perfect mazes, where the deepest cells are far beyond 256
+    t1 = time.perf_counter()
+    goals = padded(free_goals(perfect81, 16), 16)
+    cap_iters = (0, 1, 15, 16, 17, 255, 256)
+    for iters in cap_iters:
+        check(perfect81, goals, iters)
+    full = flood.flood_fields_plain(perfect81, goals, 81 * 81)
+    deepest = int(full[full < flood.INF].max())
+    if deepest <= 256:
+        raise AssertionError(f"perfect mazes only {deepest} deep: the caps "
+                             f"do not bind")
+    # the smallest side of the cases and the BFS kernel's largest (a
+    # perfect maze of 127 closed by a wall row and column, and open maps)
+    rng = np.random.RandomState(1)
+    maze128 = np.ones((16, 128, 128), np.uint8)
+    for i in range(8):
+        maze128[i, :127, :127] = perfect_maze(127, rng)
+    maze128[8:] = rng.rand(8, 128, 128) < 0.15
+    side_cases = [
+        (torch.from_numpy((rng.rand(64, 24, 24) < 0.25).astype(np.uint8)),
+         (0, 17, 20, 256)),
+        (torch.from_numpy(maze128), (17, 256))]
+    for mz, iters_list in side_cases:
+        mz = mz.to(dev).contiguous()
+        goals = padded(free_goals(mz, 16), 16)
+        for iters in iters_list:
+            check(mz, goals, iters)
+    say("kernel-caps", t1, f"iters {cap_iters} on 16 perfect 81^2 mazes "
+        f"(deepest cell {deepest}), S=24 at iters (0, 17, 20, 256) and "
+        f"S=128 at (17, 256): every kernel == its twin bit for bit; "
+        f"flood_sweep16 == flood_sweep")
 
     # times on the main paths' data (level-0 maps of the path's family, 16
     # free goals, iters 256), each output held against its twin once more
@@ -218,16 +281,27 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
             raise AssertionError(f"{name} != twin on {env_id}'s pool: "
                                  f"max_abs_err={err}")
         bound_ms, bound_by = bound(mz, goals, out, flood.INF)
+        cap = {"sweep": iters, "relax": flood.relax_cap(iters)}.get(variant)
+        stats = depth(torch, out, flood.INF, cap)
         n, g, s = mz.shape[0], goals.shape[1], mz.shape[-1]
         say("kernel-time", t0, f"{name} at {n}x{g}x{s}^2 iters {iters} "
-            f"({env_id}): kernel {kernel_ms:.4f} ms, twin {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"({env_id}): kernel {kernel_ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        say("kernel-depth", t0, f"{name} on {env_id}'s pool: " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in stats.items()))
         if name not in rows:  # the first line of each kernel is its row
             rows[name] = dict(
                 name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=None,
-                max_abs_err=errs[name], ms=kernel_ms, plain_ms=plain_ms,
+                max_abs_err=None, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            if name in BFS_KERNELS:
+                rows[name].update(
+                    implied_levels_mean=stats["implied_levels_mean"],
+                    implied_levels_max=stats["implied_levels_max"])
+    for row in rows.values():  # every case of this phase counts
+        row["max_abs_err"] = errs[row["name"]]
     return rows, inputs[BENCH_ENV]
 
 
@@ -385,9 +459,10 @@ def phase_main(torch, flood, tconfig, env_mod, learner, dueling, name,
         raise AssertionError(f"{name}: non-finite loss {losses}")
     if launches[must_launch] == 0:
         raise AssertionError(f"{name} never launched {must_launch}")
-    if must_not_launch and launches[must_not_launch] != 0:
-        raise AssertionError(f"{name} launched {must_not_launch} "
-                             f"{launches[must_not_launch]} times")
+    for other in must_not_launch:
+        if launches[other] != 0:
+            raise AssertionError(f"{name} launched {other} "
+                                 f"{launches[other]} times")
     sps = TRAIN_STEPS * NUM_ENVS * NUM_STEPS / dt
     say(name, t0, f"{TRAIN_STEPS} train steps in {dt:.3f} s: {sps:.1f} "
         f"env-steps/s; launches {launches} "
@@ -478,12 +553,13 @@ def main() -> int:
                     torch.Generator().manual_seed(0))
     main_launches = phase_main(
         torch, flood, tconfig, env_mod, learner, dueling, "main",
-        tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep", None)
+        tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep",
+        ("flood_relax", "flood_sweep16"))
     maze_launches = phase_main(
         torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
         dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
                             flood_backend="pallas"),
-        MAZE_ENV, "flood_relax", "flood_sweep")
+        MAZE_ENV, "flood_relax", ("flood_sweep", "flood_sweep16"))
     entry_launches = phase_sweep16_entry(torch, flood, pool_mz, pool_goals)
     rows["flood_sweep"]["launches"] = main_launches["flood_sweep"]
     rows["flood_relax"]["launches"] = maze_launches["flood_relax"]

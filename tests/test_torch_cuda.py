@@ -1,4 +1,6 @@
-"""The three CUDA flood kernels against their plain twins on the card.
+"""The three CUDA flood kernels against their plain twins on the card,
+also at the caps of the bit-parallel BFS kernel (csrc/flood_bfs.cu) behind
+flood_sweep and flood_relax.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (the suite's conftest.py needs JAX):
@@ -9,12 +11,14 @@ Without a card each test skips itself. chip_smoke.py makes the same checks
 at the main paths' shapes.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from active_tracking_rl_torch import config as tconfig
 from active_tracking_rl_torch.envs import maps
 from active_tracking_rl_torch.ops import flood
+from torch_mazes import perfect_maze  # tests/ is on the path under pytest
 
 ENV_IDS = ["Track2D-BlockPartialNav-v0", "Track2D-BlockPartialNav-v1",
            "Track2D-EmptyPartialNav-v0", "Track2D-MazePartialNav-v0",
@@ -57,6 +61,48 @@ def test_kernels_match_twins_on_the_card(env_id):
                 want = flood.PLAIN[variant](mz, goals, iters)
                 torch.testing.assert_close(outs[variant], want, rtol=0, atol=0)
             assert torch.equal(outs["sweep16"], outs["sweep"])
+
+
+def _check_all(mz, goals, iters):
+    outs = {}
+    for variant in flood.VARIANTS:
+        outs[variant] = flood.flood_fields(mz, goals, iters, variant)
+        want = flood.PLAIN[variant](mz, goals, iters)
+        torch.testing.assert_close(outs[variant], want, rtol=0, atol=0,
+                                   msg=f"{variant} at iters {iters}")
+    assert torch.equal(outs["sweep16"], outs["sweep"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [0, 1, 15, 16, 17, 255, 256])
+def test_kernels_match_twins_at_the_caps_on_the_card(iters):
+    """Perfect 81^2 mazes: paths far longer than 256, so every cap binds.
+    Odd S and an odd count of rows put the fields' bases on every 2-byte
+    offset modulo 16."""
+    dev = _card()
+    rng = np.random.RandomState(5)
+    mz = torch.from_numpy(np.stack([perfect_maze(81, rng)
+                                    for _ in range(5)])).to(dev)
+    goals = maps.sample_free_cells(
+        torch.rand((5, 81 * 81), generator=torch.Generator(device=dev)
+                   .manual_seed(iters), device=dev), mz, 7)
+    goals[0, -1] = -1
+    goals[1, 0] = 0
+    _check_all(mz, goals.contiguous(), iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [1, 24, 33, 64, 97, 128])
+def test_kernels_match_twins_at_every_word_count_on_the_card(side):
+    """Sides with 1 to 4 words a row, up to the BFS kernel's largest."""
+    dev = _card()
+    rng = np.random.RandomState(side)
+    mz = torch.from_numpy((rng.rand(6, side, side) < 0.25)
+                          .astype(np.uint8)).to(dev)
+    goals = torch.from_numpy(rng.randint(-1, side + 1, (6, 9, 2))
+                             .astype(np.int32)).to(dev)
+    for iters in (0, 17, 256):
+        _check_all(mz, goals, iters)
 
 
 @pytest.mark.cuda

@@ -157,7 +157,9 @@ def test_kernel_source_builds_with_nvcc_alone():
         assert f'extern "C" int {kernel.symbol}(' in src
         assert "torch/extension.h" not in src and "ATen" not in src
     assert [lib.source.name for lib in flood.LIBRARIES] == [
-        "flood_sweep.cu", "flood_relax.cu"]
+        "flood_bfs.cu", "flood_sweep.cu"]
+    assert flood.FLOOD_SWEEP.library is flood.FLOOD_RELAX.library \
+        is flood.BFS_LIB
     assert "arch=compute_90a,code=sm_90a" in flood.NVCC_FLAGS
     assert "-shared" in flood.NVCC_FLAGS
     assert flood.BUILD_DIR.name == "_build"
@@ -187,7 +189,7 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("lib_is_newer", [True, False])
 def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
-    for i, source in enumerate(["flood_sweep.cu", "flood_relax.cu"]):
+    for i, source in enumerate(["flood_bfs.cu", "flood_sweep.cu"]):
         library = flood.KernelLibrary(source)
         calls = len(fake_nvcc)
         lib = library.build()         # nothing built yet: nvcc runs
@@ -204,18 +206,18 @@ def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
 
 def test_each_library_rebuilds_for_its_own_source_only(fake_nvcc):
     """Touching one source rebuilds its library and reuses the other."""
-    sweep, relax = flood.KernelLibrary("flood_sweep.cu"), \
-        flood.KernelLibrary("flood_relax.cu")
-    libs = [sweep.build(), relax.build()]
+    sweep, bfs = (flood.KernelLibrary("flood_sweep.cu"),
+                  flood.KernelLibrary("flood_bfs.cu"))
+    libs = [sweep.build(), bfs.build()]
     for lib in libs:
         os.utime(lib, (1e9 + 20, 1e9 + 20))
     os.utime(sweep.source, (1e9, 1e9))
-    os.utime(relax.source, (1e9 + 40, 1e9 + 40))   # newer than its library
+    os.utime(bfs.source, (1e9 + 40, 1e9 + 40))   # newer than its library
     assert len(fake_nvcc) == 2
     sweep.build()
-    relax.build()
-    assert len(fake_nvcc) == 3 and fake_nvcc[-1][-1] == str(relax.source)
-    assert sweep.build_seconds is None and relax.build_seconds is not None
+    bfs.build()
+    assert len(fake_nvcc) == 3 and fake_nvcc[-1][-1] == str(bfs.source)
+    assert sweep.build_seconds is None and bfs.build_seconds is not None
 
 
 def test_smoke_build_phase_reports_a_reused_library(fake_nvcc, monkeypatch,
@@ -224,8 +226,8 @@ def test_smoke_build_phase_reports_a_reused_library(fake_nvcc, monkeypatch,
     source, started together, then both libraries reused."""
     import chip_smoke
     monkeypatch.setattr(flood, "LIBRARIES", (
-        flood.KernelLibrary("flood_sweep.cu"),
-        flood.KernelLibrary("flood_relax.cu")))
+        flood.KernelLibrary("flood_bfs.cu"),
+        flood.KernelLibrary("flood_sweep.cu")))
     chip_smoke.phase_build(flood)
     out = capsys.readouterr().out
     assert out.count("nvcc") == 2 and "reused" not in out
