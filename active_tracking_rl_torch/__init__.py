@@ -6,9 +6,9 @@ and numpy only. Entry points take an explicit ``device`` (default
 ``"cuda"``); every function that uses randomness takes its draws as tensors
 at a seam, produced in production by a ``torch.Generator``.
 
-The hand-written kernels are the BFS flood fills, bound in ``ops/flood.py``:
-a bit-parallel frontier BFS (``csrc/flood_bfs.cu``) for the sweep and relax
-variants, and the int16 fast sweep (``csrc/flood_sweep.cu``).
+The hand-written kernel is the BFS flood fill, bound in ``ops/flood.py``:
+one bit-parallel frontier BFS (``csrc/flood_bfs.cu``) behind the launchers
+of the sweep, sweep16 and relax variants.
 """
 
 __version__ = "0.1.0"

@@ -167,6 +167,29 @@ class TrainConfig:
     checkpoint_every: int = 200
 
 
+#: the JAX package's presets (the reference README's runs), field for field.
+PRESETS = {
+    # AD-VAT 2D: tat target + PZR reward, joint training
+    "advat-2d": TrainConfig(env_id="Track2D-BlockPartialPZR-v0",
+                            env_base="Track2D-BlockPartialNav-v0",
+                            train_mode=-1),
+    # naive dueling: plain A3C target, Adv reward, low target entropy
+    "naive-dueling-2d": TrainConfig(env_id="Track2D-BlockPartialAdv-v0",
+                                    env_base="Track2D-BlockPartialNav-v0",
+                                    entropy_target=0.01, train_mode=-1),
+    # tracker-only baselines vs scripted targets
+    "tracker-nav-2d": TrainConfig(env_id="Track2D-BlockPartialNav-v0",
+                                  train_mode=0),
+    "tracker-ram-2d": TrainConfig(env_id="Track2D-BlockPartialRam-v0",
+                                  env_base="Track2D-BlockPartialRam-v0",
+                                  train_mode=0),
+}
+
+
+def preset(name: str) -> TrainConfig:
+    return PRESETS[name]
+
+
 def net_config_for(train_cfg: TrainConfig,
                    network: Optional[str] = None) -> NetConfig:
     """tat-maze-lstm for dueling PZR/Far, maze-lstm otherwise."""

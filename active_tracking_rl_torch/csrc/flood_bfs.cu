@@ -1,13 +1,18 @@
 // Capped BFS distance fields as a bit-parallel frontier BFS, one warp per
-// field. One kernel behind two launchers:
+// field. One kernel behind three launchers:
 //
-//   flood_sweep_launch  replaces `_sweep_kernel` with its int32 carry
-//                       (`flood_fields_pallas(variant="sweep")`,
-//                       active_tracking_rl_tpu/ops/flood_pallas.py:84, call
-//                       :273), the main path's flood;
-//   flood_relax_launch  replaces `_relax_kernel` with its seeding
-//                       `_init_fields` (`variant="relax"`, the same file
-//                       :41 and :210, call :294), `flood_backend="pallas"`.
+//   flood_sweep_launch    replaces `_sweep_kernel` with its int32 carry
+//                         (`flood_fields_pallas(variant="sweep")`,
+//                         active_tracking_rl_tpu/ops/flood_pallas.py:84, call
+//                         :273), the main path's flood;
+//   flood_sweep16_launch  replaces the same kernel with its int16 carry
+//                         (`variant="sweep16"`, the same lines); the carry
+//                         only halves the TPU kernel's VMEM traffic, and a
+//                         bitset BFS that stages bytes has no carry to
+//                         narrow, so this launcher is flood_sweep_launch;
+//   flood_relax_launch    replaces `_relax_kernel` with its seeding
+//                         `_init_fields` (`variant="relax"`, the same file
+//                         :41 and :210, call :294), `flood_backend="pallas"`.
 //
 // Contract: mazes (N, S, S) uint8 (nonzero = wall), goals (N, G, 2) int32
 // (row, col); out (N, G, S, S) int16 holds the 4-connected BFS distance from
@@ -16,9 +21,10 @@
 // INF. S <= kMaxSide = 128.
 //
 // The caps, and why each is exact.
-// * flood_sweep: cap = iters. `_sweep_kernel` solves the BFS by fast
-//   sweeping and then maps distances > iters to INF; the port's plain twin
-//   `flood_fields_plain` (ops/flood.py) is that capped BFS.
+// * flood_sweep and flood_sweep16: cap = iters. `_sweep_kernel` solves the
+//   BFS by fast sweeping, with either carry, and then maps distances > iters
+//   to INF; the port's plain twin `flood_fields_plain` (ops/flood.py), which
+//   serves both variants, is that capped BFS.
 // * flood_relax: cap = check_every * ceil(iters / check_every), 0 when
 //   iters <= 0. `_relax_kernel` runs Jacobi sweeps in chunks of
 //   check_every (16) while the sweep count is < iters and the last chunk
@@ -33,15 +39,16 @@
 // below (rows as Python ints) to both plain twins and to JAX's interpreted
 // Pallas kernels under these caps.
 //
-// One gap to `_sweep_kernel`, for iters >= 256 only. The TPU kernel stops
-// after 128 rounds (`_MAX_ROUNDS`). A round carries a shortest path through
-// one vertical and one horizontal run, so every distance <= 255 is exact
-// after 128 rounds; a cell at a distance in [256, iters] can be left too
-// large, or INF, but only when every shortest path to it is a unit
-// staircase that needs more than 128 rounds. This kernel is the capped BFS
-// that the variant's contract (and its twin) defines, and gives the exact
-// distance there. No field of the shipped maps comes near 256 (the deepest
-// measured fields reach 150-ish; PERF.md).
+// One gap to `_sweep_kernel`, with either carry, for iters >= 256 only.
+// The TPU kernel stops after 128 rounds (`_MAX_ROUNDS`). A round carries a
+// shortest path through one vertical and one horizontal run, so every
+// distance <= 255 is exact after 128 rounds; a cell at a distance in
+// [256, iters] can be left too large, or INF, but only when every shortest
+// path to it is a unit staircase that needs more than 128 rounds. This
+// kernel is the capped BFS that the variants' contract (and their twin)
+// defines, and gives the exact distance there, under flood_sweep_launch and
+// flood_sweep16_launch alike. No field of the shipped maps comes near 256
+// (the deepest measured fields reach 150-ish; PERF.md).
 //
 // Design for the H100. The work is bit logic on a warp's registers: no
 // matrix product and no tile stream, so wgmma and TMA have nothing to do.
@@ -321,15 +328,25 @@ long long relax_cap(int iters, int check_every) {
 
 }  // namespace
 
-// Both launch ceil(N * G / 2) blocks of 2 warps on `stream` and return
+// Each launches ceil(N * G / 2) blocks of 2 warps on `stream` and returns
 // cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for S outside
 // [1, 128]. Every flood launcher of the port has one signature:
-// (maze, goals, out, n, g, s, iters, extra, stream).
+// (maze, goals, out, n, g, s, iters, extra, stream). Only the relax
+// launcher reads `extra` (its check cadence); the two sweep launchers take
+// it to keep that one signature and do not read it.
 
-// Variant "sweep": cap = iters. `unused` is not read.
+// Variant "sweep": cap = iters.
 extern "C" int flood_sweep_launch(const void* maze, const void* goals, void* out,
                                   int n, int g, int s, int iters, int unused,
                                   void* stream) {
+  (void)unused;
+  return launch(maze, goals, out, n, g, s, iters, stream);
+}
+
+// Variant "sweep16": the same launch as "sweep", cap = iters.
+extern "C" int flood_sweep16_launch(const void* maze, const void* goals,
+                                    void* out, int n, int g, int s, int iters,
+                                    int unused, void* stream) {
   (void)unused;
   return launch(maze, goals, out, n, g, s, iters, stream);
 }

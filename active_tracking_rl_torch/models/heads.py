@@ -10,7 +10,7 @@ package's one-hot lane selects. Continuous heads wait.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,10 +21,10 @@ class ActionSample(NamedTuple):
     log_prob: torch.Tensor    # (B, 1)
 
 
-def sample_discrete(logits: torch.Tensor, gumbel: torch.Tensor,
+def sample_discrete(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
                     test: bool = False) -> ActionSample:
-    """Softmax entropy; argmax(logits + gumbel) (train) or argmax p (test);
-    the log-probability of the chosen action."""
+    """Softmax entropy; argmax(logits + gumbel) (train) or argmax p (test,
+    which reads no noise); the log-probability of the chosen action."""
     log_p = torch.log_softmax(logits, dim=-1)
     p = torch.exp(log_p)
     entropy = -(log_p * p).sum(-1, keepdim=True)

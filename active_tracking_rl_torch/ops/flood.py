@@ -8,10 +8,9 @@ those of ``flood_fields_pallas`` in ``active_tracking_rl_tpu/ops/flood_pallas.py
 * ``"sweep"`` and ``"sweep16"``: the BFS distance where it is <= iters, INF
   elsewhere (the contract of the iteration-capped relaxation
   ``active_tracking_rl_tpu/envs/distance.py:distance_fields``; the TPU
-  kernel ``_sweep_kernel`` with an int32 or an int16 carry). Kernels:
-  ``csrc/flood_bfs.cu`` (a bit-parallel frontier BFS capped at iters) and
-  ``csrc/flood_sweep.cu`` (fast sweeping, int16 carry). Twin:
-  ``flood_fields_plain``.
+  kernel ``_sweep_kernel`` with an int32 or an int16 carry). Kernel: the
+  bit-parallel frontier BFS of ``csrc/flood_bfs.cu`` capped at iters, one
+  launcher each. Twin: ``flood_fields_plain``.
 * ``"relax"``: synchronous relaxation in chunks of 16 sweeps, so up to
   ceil(iters / 16) * 16 sweeps, as the TPU kernel ``_relax_kernel`` runs;
   from one seed that is the BFS capped at ceil(iters / 16) * 16. Kernel:
@@ -20,11 +19,11 @@ those of ``flood_fields_pallas`` in ``active_tracking_rl_tpu/ops/flood_pallas.py
 On a CPU tensor ``flood_fields`` runs the variant's twin. On a CUDA tensor it
 launches the variant's kernel or raises; it never falls back to the twin.
 
-Each CUDA source is compiled with ``nvcc`` into its own shared library with
-a plain C interface at first use, into ``active_tracking_rl_torch/_build/``
-(listed in ``.gitignore``), and loaded with ``ctypes``. A library newer than
-its own source is reused. ``build_all`` builds every source at once, one
-``nvcc`` each.
+The CUDA source is compiled with ``nvcc`` into a shared library with a plain
+C interface at first use, into ``active_tracking_rl_torch/_build/`` (listed
+in ``.gitignore``), and loaded with ``ctypes``. A library newer than its own
+source is reused. ``build_all`` builds every library in ``LIBRARIES`` at
+once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -43,15 +42,11 @@ import torch.nn.functional as F
 #: "unreachable" distance; fits int16 with headroom for +1 relaxation adds.
 INF = 16000
 
-#: flood_sweep16's round cap (each round handles about two more turns of a
-#: path); 2x headroom over the ~65 rounds a 256-step path can need.
-MAX_ROUNDS = 128
-
 #: sweeps per convergence check of the relaxation kernel.
 CHECK_EVERY = 16
 
 #: the largest side the kernels take: the BFS kernel's rows are at most 4
-#: words, and the fast sweep's field and wall mask (3 bytes a cell) fit the
+#: words, and at 128 its two staged fields a block (a byte a cell) fit the
 #: 48 KB a block holds without opting in for more.
 MAX_SIDE = 128
 
@@ -175,8 +170,8 @@ class FloodKernel:
         self.name = name
         self.library = library
         self.symbol = symbol
-        #: the launcher's last int: the round cap, the check cadence, or 0
-        #: where the launcher reads none.
+        #: the launcher's last int: the relaxation's check cadence, or 0 for
+        #: the sweep launchers, which read none.
         self.extra = extra
         #: launches of the kernel, counted where it launches and nowhere else.
         self.launches = 0
@@ -216,14 +211,13 @@ class FloodKernel:
 
 
 BFS_LIB = KernelLibrary("flood_bfs.cu")
-SWEEP_LIB = KernelLibrary("flood_sweep.cu")
-LIBRARIES = (BFS_LIB, SWEEP_LIB)
+LIBRARIES = (BFS_LIB,)
 
-#: the process's one binding of each kernel; chip_smoke.py reads their
-#: `launches` to show that a path went through them.
+#: the process's one binding of each launcher, each with its own count;
+#: chip_smoke.py reads their `launches` to show which variant a path ran.
 FLOOD_SWEEP = FloodKernel("flood_sweep", BFS_LIB, "flood_sweep_launch", 0)
-FLOOD_SWEEP16 = FloodKernel("flood_sweep16", SWEEP_LIB, "flood_sweep16_launch",
-                            MAX_ROUNDS)
+FLOOD_SWEEP16 = FloodKernel("flood_sweep16", BFS_LIB, "flood_sweep16_launch",
+                            0)
 FLOOD_RELAX = FloodKernel("flood_relax", BFS_LIB, "flood_relax_launch",
                           CHECK_EVERY)
 

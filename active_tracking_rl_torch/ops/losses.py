@@ -7,12 +7,14 @@ agent over a T-step rollout:
 with the tracker's entropy weight `entropy` and the target's
 `entropy_target`. Mode 0 trains the tracker's loss, 1 the target's, other
 modes both. Returns and GAE carry no gradient; V enters only through R - V.
-The aux reward head (TAT) waits.
+With the TAT target's aux reward head,
+    pred_loss   = sum_t |r_pred_t - r_t,tracker|
+is added to the loss in every mode but 0 (and reported in all).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +26,7 @@ class LossStats(NamedTuple):
     policy_loss: torch.Tensor   # (B, 2)
     value_loss: torch.Tensor    # (B, 2)
     entropy: torch.Tensor       # (B, 2) summed over T
+    pred_loss: torch.Tensor     # (B,), zeros without an aux head
 
 
 def dueling_loss(rewards: torch.Tensor,      # (T, B, 2)
@@ -34,7 +37,9 @@ def dueling_loss(rewards: torch.Tensor,      # (T, B, 2)
                  done: torch.Tensor,         # (T, B)
                  training_mode: int,
                  gamma: float, tau: float,
-                 w_entropy: float, w_entropy_target: float) -> LossStats:
+                 w_entropy: float, w_entropy_target: float,
+                 r_preds: Optional[torch.Tensor] = None  # (T, B) aux head
+                 ) -> LossStats:
     ret, gae = gae_returns(rewards, values.detach(), bootstrap.detach(), done,
                            gamma, tau)
     advantage = ret - values
@@ -50,4 +55,11 @@ def dueling_loss(rewards: torch.Tensor,      # (T, B, 2)
         loss = loss_target
     else:
         loss = loss_tracker + loss_target
-    return LossStats(loss, policy_loss, value_loss, entropies.sum(0))
+    if r_preds is None:
+        pred_loss = torch.zeros_like(loss)
+    else:
+        pred_loss = (r_preds - rewards[..., 0]).abs().sum(0)
+        if training_mode != 0:
+            loss = loss + pred_loss
+    return LossStats(loss, policy_loss, value_loss, entropies.sum(0),
+                     pred_loss)

@@ -31,6 +31,7 @@ class TrainMetrics(NamedTuple):
     policy_loss: torch.Tensor    # (2,)
     value_loss: torch.Tensor     # (2,)
     entropy: torch.Tensor        # (2,)
+    pred_loss: torch.Tensor      # mean over rows of the aux L1 loss
     ep_return: torch.Tensor      # (2,) mean return of episodes finished this iter
     ep_len: torch.Tensor
     ep_count: torch.Tensor
@@ -48,7 +49,8 @@ class StepNoise(NamedTuple):
 def bootstrap_values(model: DuelingModel, carry: TrainCarry,
                      gumbel: torch.Tensor) -> torch.Tensor:
     """V(s_T) for both players, (B, 2). The target's value is conditioned on
-    a fresh tracker sample at s_T (which only a TAT target reads)."""
+    a fresh tracker sample at s_T, drawn by `gumbel` (a TAT target reads it;
+    a plain one does not)."""
     obs_f = obs_to_model(carry.obs_stack)
     out0 = model.tracker_fwd(obs_f[:, 0], carry.hx[:, 0], carry.cx[:, 0])
     s0 = model.sample(out0, gumbel)
@@ -75,9 +77,6 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
     `noise` is the step's sampling noise; None draws it from the carry's
     generator.
     """
-    if net_cfg.tat:
-        raise NotImplementedError("TAT training is not ported yet")
-
     def train_step(carry: TrainCarry, mode: int,
                    pool: Optional[Tuple[EnvState, torch.Tensor,
                                         torch.Tensor]] = None,
@@ -95,7 +94,8 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
         boot = bootstrap_values(model, new_carry, noise.bootstrap)
         stats = dueling_loss(traj.rewards, traj.values, boot, traj.log_probs,
                              traj.entropies, traj.done, mode, tcfg.gamma,
-                             tcfg.tau, tcfg.entropy, tcfg.entropy_target)
+                             tcfg.tau, tcfg.entropy, tcfg.entropy_target,
+                             traj.r_pred)
         loss = stats.loss.mean()
         loss.backward()
         grad_norm = global_norm(p.grad for p in model.parameters()
@@ -111,6 +111,7 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
             policy_loss=stats.policy_loss.detach().mean(0),
             value_loss=stats.value_loss.detach().mean(0),
             entropy=stats.entropy.detach().mean(0) / tcfg.num_steps,
+            pred_loss=stats.pred_loss.detach().mean(),
             ep_return=traj.ep_return.sum((0, 1)) / denom,
             ep_len=traj.ep_len.sum().to(torch.float32) / denom,
             ep_count=ep_count,

@@ -6,7 +6,8 @@ samples, then the target; the env steps (a scripted target follows its
 tape); terminated rows take fresh episodes from the reset pool, with their
 frame stack refilled and their recurrent state zeroed. The carry's
 recurrent state enters detached, which truncates BPTT at the rollout
-boundary. Rematerialization (``remat``) waits.
+boundary. A TAT target's predictions of the tracker's reward are kept for
+the aux loss. Rematerialization (``remat``) waits.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class Trajectory(NamedTuple):
     entropies: torch.Tensor        # (T, B, 2)
     rewards: torch.Tensor          # (T, B, 2)
     done: torch.Tensor             # (T, B)
+    r_pred: Optional[torch.Tensor]  # (T, B) TAT aux head, else None
     ep_return: torch.Tensor        # (T, B, 2) c_reward where done, else 0
     ep_len: torch.Tensor           # (T, B) t where done, else 0
 
@@ -102,10 +104,12 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
     env_state, obs_stack = carry.env_state, carry.obs_stack
     hx, cx = carry.hx.detach(), carry.cx.detach()
     k = obs_stack.shape[2]
-    outs = []
+    outs, r_preds = [], []
     for t in range(tcfg.num_steps):
-        values, actions, entropies, log_probs, hx, cx = model.step_both(
-            obs_to_model(obs_stack), hx, cx, action_noise[t])
+        (values, actions, entropies, log_probs, hx, cx,
+         r_pred) = model.step_both(obs_to_model(obs_stack), hx, cx,
+                                   action_noise[t])
+        r_preds.append(r_pred)
         env_state, obs, rewards, done, _ = env.step(env_state, actions)
         ep_return = torch.where(done[:, None], env_state.c_reward, 0.0)
         ep_len = torch.where(done, env_state.t, 0)
@@ -121,6 +125,8 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
 
     (values, log_probs, entropies, rewards, done, ep_return,
      ep_len) = (torch.stack(x) for x in zip(*outs))
-    traj = Trajectory(values, log_probs, entropies, rewards, done, ep_return,
-                      ep_len)
+    aux = model.cfg.tat and model.cfg.aux_reward
+    r_pred = torch.stack(r_preds)[..., 0] if aux else None
+    traj = Trajectory(values, log_probs, entropies, rewards, done, r_pred,
+                      ep_return, ep_len)
     return traj, TrainCarry(env_state, obs_stack, hx, cx, gen), ptr

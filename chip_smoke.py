@@ -7,27 +7,29 @@ Run from the root of the repository, with no install step:
 
 Phases (each prints one line with its seconds):
   1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`;
-  2. build: compiles csrc/flood_bfs.cu (flood_sweep and flood_relax) and
-     csrc/flood_sweep.cu (flood_sweep16) with nvcc, one process per source,
-     started together (plain C interface, ctypes); prints ptxas's registers,
-     shared memory and spills for each kernel;
-  3. kernel: each flood kernel (flood_sweep, flood_sweep16, flood_relax)
+  2. build: compiles csrc/flood_bfs.cu, the one kernel source (its launchers
+     flood_sweep, flood_sweep16 and flood_relax), with nvcc (plain C
+     interface, ctypes); prints ptxas's registers, shared memory and spills
+     for each instance of the kernel;
+  3. kernel: each flood launcher (flood_sweep, flood_sweep16, flood_relax)
      against its plain PyTorch twin on the card, bit for bit, on 512 mazes
      at S=82 (Block maps of two densities, Empty maps) and on mazes of side
      81 (perfect mazes and the port's own maze walk), with 16, 13 and 4 goals
      with (-1,-1) pads and goals on walls, at iters 20, 48 and 256 (20 pins
      the relaxation's whole 16-sweep chunks); then the caps: iters 0, 1, 15,
      16, 17, 255 and 256 on the perfect mazes, whose paths are far longer
-     than 256, and a case at S=24 and at S=128, the BFS kernel's largest
-     side; flood_sweep16 must also equal flood_sweep; prints each kernel's,
-     its twin's and its bound's time, and the depth of the timed fields
-     (for the BFS kernels also the levels that their output implies);
+     than 256, on Block and Empty maps at S=82, at S=24 and at S=128, the
+     kernel's largest side; flood_sweep16 must also equal flood_sweep;
+     prints each launcher's, its twin's and its bound's time, and the depth
+     of the timed fields with the levels that their output implies;
   4. reference: the port on the card against the port on the CPU (where the
      floods are the plain twins): reset and 3 steps bit for bit (float state
      to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
-     config and Track2D-MazePartialRPF-v0 on the relaxation kernel; and one
+     config and Track2D-MazePartialRPF-v0 on the relaxation kernel; one
      8-step train step's loss to 1e-4 relative, on the Block main path's id
-     and on Track2D-MazeFullRPF-v0;
+     and on Track2D-MazeFullRPF-v0, and one AD-VAT train step at mode -1
+     (loss and pred_loss); and the greedy evaluator on the AD-VAT eval env,
+     8 episodes of 60 steps, episode lengths equal and returns to 1e-5;
   5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
      maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
      refreshed every iteration, 20 steps: init_learner, one untimed warm-up
@@ -39,12 +41,26 @@ Phases (each prints one line with its seconds):
   6. maze-main: the same on Track2D-MazePartialNav-v0 with flood_backend
      "pallas": flood_relax must be launched, flood_sweep and flood_sweep16
      must not;
-  7. sweep16-entry: flood_fields(variant="sweep16"), the int16 kernel's only
-     entry point, on one main-path reset pool's mazes and goals.
-Then one JSON line with the kernel table (the BFS kernels' rows also
-carry their implied levels), the card's line from nvidia-smi,
-and the last line {"ok": true, "device": {...}}. Any failure raises and the
-script exits non-zero without the last line.
+  7. advat: AD-VAT at full width, the advat-2d preset (tat-maze-lstm on
+     Track2D-BlockPartialPZR-v0, static train mode -1, amsgrad Adam, target
+     entropy 0.2) at 4096 envs, a pool of 512 refreshed every iteration, 20
+     steps, init_step 3: the curriculum picks each iteration's mode, so the
+     untimed warm-up (iteration 1) and the first timed step run mode 0 and
+     the next two -1; the losses must be finite, pred_loss must stay out of
+     the loss at mode 0 and enter it at -1, and no flood kernel may run (PZR
+     episodes have no scripted tape); prints env-steps/s, each step's
+     seconds, the losses and pred_losses, then the time of one reset pool
+     and of one train step on it;
+  8. advat-eval: the greedy evaluator with the trained players on the
+     preset's env_base, Track2D-BlockPartialNav-v0, 100 episodes of 500
+     steps; its reset must launch flood_sweep and no other flood kernel;
+     prints S_rate, EL_mean and the seconds;
+  9. sweep16-entry: flood_fields(variant="sweep16"), the int16 variant's
+     only entry point, on one main-path reset pool's mazes and goals.
+Then one JSON line with the kernel table (each row also carries the levels
+its timed output implies and its launches on every path), the card's line
+from nvidia-smi, and the last line {"ok": true, "device": {...}}. Any
+failure raises and the script exits non-zero without the last line.
 """
 
 from __future__ import annotations
@@ -68,14 +84,17 @@ NUM_ENVS, RESET_POOL, NUM_STEPS, TRAIN_STEPS = 4096, 512, 20, 3
 #: rows of each id's card-vs-CPU reset check
 REFERENCE_ROWS = 8
 
+ADVAT_PRESET = "advat-2d"
+#: the curriculum's warmup: iterations below it train mode 0
+ADVAT_INIT_STEP = 3
+EVAL_EPISODES, EVAL_STEPS = 100, 500
+
 SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
-           "flood_sweep16": "active_tracking_rl_torch/csrc/flood_sweep.cu",
+           "flood_sweep16": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_relax": "active_tracking_rl_torch/csrc/flood_bfs.cu"}
 REPLACES = {"flood_sweep": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
             "flood_sweep16": "active_tracking_rl_tpu/ops/flood_pallas.py:84",
             "flood_relax": "active_tracking_rl_tpu/ops/flood_pallas.py:41"}
-#: the kernels that run the bit-parallel BFS of csrc/flood_bfs.cu
-BFS_KERNELS = ("flood_sweep", "flood_relax")
 
 
 def say(phase: str, t0: float, msg: str = "") -> None:
@@ -126,28 +145,26 @@ def bound(mz, goals, out, inf):
         else "operations"
 
 
-def depth(torch, out, inf, cap=None):
+def depth(torch, out, inf, cap):
     """Depth statistics of fields (N, G, S, S): the mean and the largest
-    finite distance per field and, given the BFS kernel's cap, the levels
-    that the output implies it ran per field (a field D deep runs D + 1
-    levels, the last finding nothing, or stops at the cap; a field with no
-    seed runs 1). The kernel counts no levels itself."""
+    finite distance per field, and the levels that the output implies the
+    BFS kernel ran per field under `cap` (a field D deep runs D + 1 levels,
+    the last finding nothing, or stops at the cap; a field with no seed runs
+    1). The kernel counts no levels itself."""
     f = out.flatten(2).int()
     finite = f < inf
     seeded = finite.any(-1)
     far = torch.where(finite, f, -1).amax(-1)
     mean = (torch.where(finite, f, 0).sum(-1).double()
             / finite.sum(-1).clamp_min(1))
-    stats = dict(
+    levels = torch.where(seeded, torch.clamp(far + 1, max=cap), 1)
+    return dict(
         fields=int(f.shape[0] * f.shape[1]), seeded=int(seeded.sum()),
         mean_dist=float(mean[seeded].mean()),
         mean_max_dist=float(far[seeded].double().mean()),
-        max_dist=int(far.max()))
-    if cap is not None:
-        levels = torch.where(seeded, torch.clamp(far + 1, max=cap), 1)
-        stats.update(implied_levels_mean=float(levels.double().mean()),
-                     implied_levels_max=int(levels.max()))
-    return stats
+        max_dist=int(far.max()),
+        implied_levels_mean=float(levels.double().mean()),
+        implied_levels_max=int(levels.max()))
 
 
 def phase_kernel(torch, flood, maps, tconfig, gen):
@@ -235,26 +252,28 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
     if deepest <= 256:
         raise AssertionError(f"perfect mazes only {deepest} deep: the caps "
                              f"do not bind")
-    # the smallest side of the cases and the BFS kernel's largest (a
-    # perfect maze of 127 closed by a wall row and column, and open maps)
+    # Block and Empty maps at S=82, the smallest side of the cases and the
+    # kernel's largest (a perfect maze of 127 closed by a wall row and
+    # column, and open maps), every one at every cap
     rng = np.random.RandomState(1)
     maze128 = np.ones((16, 128, 128), np.uint8)
     for i in range(8):
         maze128[i, :127, :127] = perfect_maze(127, rng)
     maze128[8:] = rng.rand(8, 128, 128) < 0.15
     side_cases = [
+        (mazes82[::8], cap_iters),
         (torch.from_numpy((rng.rand(64, 24, 24) < 0.25).astype(np.uint8)),
-         (0, 17, 20, 256)),
-        (torch.from_numpy(maze128), (17, 256))]
+         cap_iters + (20,)),
+        (torch.from_numpy(maze128), cap_iters)]
     for mz, iters_list in side_cases:
         mz = mz.to(dev).contiguous()
         goals = padded(free_goals(mz, 16), 16)
         for iters in iters_list:
             check(mz, goals, iters)
     say("kernel-caps", t1, f"iters {cap_iters} on 16 perfect 81^2 mazes "
-        f"(deepest cell {deepest}), S=24 at iters (0, 17, 20, 256) and "
-        f"S=128 at (17, 256): every kernel == its twin bit for bit; "
-        f"flood_sweep16 == flood_sweep")
+        f"(deepest cell {deepest}), on 64 Block and Empty maps at S=82, at "
+        f"S=24 (and iters 20) and at S=128: every launcher == its twin bit "
+        f"for bit; flood_sweep16 == flood_sweep")
 
     # times on the main paths' data (level-0 maps of the path's family, 16
     # free goals, iters 256), each output held against its twin once more
@@ -281,7 +300,7 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
             raise AssertionError(f"{name} != twin on {env_id}'s pool: "
                                  f"max_abs_err={err}")
         bound_ms, bound_by = bound(mz, goals, out, flood.INF)
-        cap = {"sweep": iters, "relax": flood.relax_cap(iters)}.get(variant)
+        cap = flood.relax_cap(iters) if variant == "relax" else iters
         stats = depth(torch, out, flood.INF, cap)
         n, g, s = mz.shape[0], goals.shape[1], mz.shape[-1]
         say("kernel-time", t0, f"{name} at {n}x{g}x{s}^2 iters {iters} "
@@ -295,11 +314,9 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
                 name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=None,
                 max_abs_err=None, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-            if name in BFS_KERNELS:
-                rows[name].update(
-                    implied_levels_mean=stats["implied_levels_mean"],
-                    implied_levels_max=stats["implied_levels_max"])
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                implied_levels_mean=stats["implied_levels_mean"],
+                implied_levels_max=stats["implied_levels_max"])
     for row in rows.values():  # every case of this phase counts
         row["max_abs_err"] = errs[row["name"]]
     return rows, inputs[BENCH_ENV]
@@ -341,13 +358,16 @@ def check_reset_steps(torch, env_mod, ecfg, gen_cpu, rows, what):
             raise AssertionError(f"cuda != cpu in {what} step {i} obs")
 
 
-def check_train_step(torch, tconfig, env_mod, learner, dueling, ecfg, env_id,
-                     gen_cpu):
+def check_train_step(torch, tconfig, env_mod, learner, dueling, env_id,
+                     train_mode, gen_cpu):
     """One 8-step train step at 16 envs (pool 8) on the card and the CPU,
-    from the same reset draws, parameters and noise. Returns both losses."""
-    ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
+    from the same reset draws, parameters and noise, at static train mode
+    `train_mode` (the step's mode too), with the id's default network.
+    Returns both losses and both pred_losses."""
+    ecfg = tconfig.parse_env_id(env_id)
     tcfg = tconfig.TrainConfig(env_id=env_id, num_envs=16, reset_pool=8,
-                               num_steps=8, train_mode=0)
+                               num_steps=8, train_mode=train_mode)
+    ncfg = tconfig.net_config_for(tcfg)
     draws = env_mod.draw_reset(ecfg, 24, gen_cpu, "cpu")
     noise = learner.draw_step_noise(8, tcfg.num_envs, ecfg.num_actions,
                                     gen_cpu, "cpu")
@@ -369,29 +389,63 @@ def check_train_step(torch, tconfig, env_mod, learner, dueling, ecfg, env_id,
         pool = (state.map(lambda x: x[n:]), obs[n:],
                 learner.init_pool_ptr(device=dev))
         step = learner.make_train_step(model, env, ncfg, tcfg, opt)
-        carry, metrics, _ = step(carry, 0, pool, learner.StepNoise(
+        carry, metrics, _ = step(carry, train_mode, pool, learner.StepNoise(
             *(x.to(dev) for x in noise)))
         results[dev] = dict(state=state.map(lambda x: x.cpu()),
                             carry=carry.env_state.map(lambda x: x.cpu()),
-                            loss=metrics.loss.item())
+                            loss=metrics.loss.item(),
+                            pred_loss=metrics.pred_loss.item())
     for name in ("state", "carry"):
         _assert_state_close(torch, results["cpu"][name],
                             results["cuda"][name], f"{env_id} {name}")
-    lc, lg = results["cpu"]["loss"], results["cuda"]["loss"]
     # float32 on both sides with TF32 off: only reduction order differs
-    if not abs(lc - lg) <= 1e-4 * max(1.0, abs(lc)):
-        raise AssertionError(f"{env_id} train-step loss cuda {lg} != cpu {lc}")
-    return lg, lc
+    for name in ("loss", "pred_loss"):
+        c, g = results["cpu"][name], results["cuda"][name]
+        if not abs(c - g) <= 1e-4 * max(1.0, abs(c)):
+            raise AssertionError(f"{env_id} train-step {name} cuda {g} != "
+                                 f"cpu {c}")
+    return ((results["cuda"]["loss"], results["cpu"]["loss"]),
+            (results["cuda"]["pred_loss"], results["cpu"]["pred_loss"]))
 
 
-def phase_reference(torch, tconfig, env_mod, learner, dueling, gen_cpu):
+def check_eval(torch, tconfig, env_mod, dueling, evaluate, gen_cpu,
+               episodes=8, max_steps=60):
+    """The greedy evaluator of the AD-VAT preset on its eval env, on the card
+    and the CPU from the same reset draws and parameters: episode lengths
+    equal, returns to 1e-5 (the card's rewards may differ in the last ulp).
+    Returns the card's episode lengths."""
+    tcfg = tconfig.preset(ADVAT_PRESET)
+    ncfg = tconfig.net_config_for(tcfg)
+    ecfg = tconfig.parse_env_id(tcfg.env_base)
+    draws = env_mod.draw_reset(ecfg, episodes, gen_cpu, "cpu")
+    params = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                 device="cpu", generator=gen_cpu).state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                    device=dev)
+        model.load_state_dict(params)
+        out[dev] = evaluate.evaluate(model, env_mod.TrackEnv(ecfg, dev), ncfg,
+                                     episodes=episodes, max_steps=max_steps,
+                                     draws=_to(draws, dev))
+    if not np.array_equal(out["cpu"]["ep_lens"], out["cuda"]["ep_lens"]):
+        raise AssertionError(f"evaluator episode lengths cuda "
+                             f"{out['cuda']['ep_lens']} != cpu "
+                             f"{out['cpu']['ep_lens']}")
+    np.testing.assert_allclose(out["cuda"]["ep_returns"],
+                               out["cpu"]["ep_returns"], rtol=1e-5, atol=1e-5)
+    return out["cuda"]["ep_lens"]
+
+
+def phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
+                    gen_cpu):
     """The port on the card against the port on the CPU, small inputs."""
     t0 = time.perf_counter()
     losses = {}
-    for env_id in (BENCH_ENV, "Track2D-MazeFullRPF-v0"):
+    for env_id, mode in ((BENCH_ENV, 0), ("Track2D-MazeFullRPF-v0", 0),
+                         (tconfig.preset(ADVAT_PRESET).env_id, -1)):
         losses[env_id] = check_train_step(
-            torch, tconfig, env_mod, learner, dueling,
-            tconfig.parse_env_id(env_id), env_id, gen_cpu)
+            torch, tconfig, env_mod, learner, dueling, env_id, mode, gen_cpu)
     ids = [i for i in tconfig.env_ids() if i.endswith("-v0")]
     configs = [(i, tconfig.parse_env_id(i)) for i in ids]
     configs.append(("Moore Track2D-BlockPartialRam-v0", dataclasses.replace(
@@ -402,12 +456,16 @@ def phase_reference(torch, tconfig, env_mod, learner, dueling, gen_cpu):
         flood_backend="pallas")))
     for what, ecfg in configs:
         check_reset_steps(torch, env_mod, ecfg, gen_cpu, REFERENCE_ROWS, what)
-    loss_text = "; ".join(f"{k} loss cuda {g:.6f} vs cpu {c:.6f}"
-                          for k, (g, c) in losses.items())
+    eval_lens = check_eval(torch, tconfig, env_mod, dueling, evaluate,
+                           gen_cpu)
+    loss_text = "; ".join(
+        f"{k} loss cuda {lg:.6f} vs cpu {lc:.6f}, pred_loss cuda {pg:.6f} "
+        f"vs cpu {pc:.6f}" for k, ((lg, lc), (pg, pc)) in losses.items())
     say("reference", t0, f"reset + 3 steps bit-exact cuda vs cpu for "
         f"{len(configs)} configs ({len(ids)} level-0 ids, Moore, RPF on "
         f"flood_relax) at {REFERENCE_ROWS} rows; 8-step train step: "
-        f"{loss_text}")
+        f"{loss_text}; greedy evaluator, {len(eval_lens)} episodes of 60 "
+        f"steps: lengths {eval_lens.tolist()} equal, returns to 1e-5")
 
 
 def reset_counts(flood) -> None:
@@ -503,8 +561,120 @@ def phase_main(torch, flood, tconfig, env_mod, learner, dueling, name,
     return launches
 
 
+def phase_advat(torch, flood, tconfig, env_mod, learner, dueling,
+                curriculum):
+    """AD-VAT's trainer at full width; returns the trained model, its net
+    and train configs, and the timed steps' launches."""
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(
+        tconfig.preset(ADVAT_PRESET), num_envs=NUM_ENVS,
+        reset_pool=RESET_POOL, num_steps=NUM_STEPS,
+        init_step=ADVAT_INIT_STEP)
+    ncfg = tconfig.net_config_for(tcfg)
+    ecfg = tconfig.parse_env_id(tcfg.env_id)
+    if not (ncfg.tat and ncfg.aux_reward) or tcfg.train_mode != -1:
+        raise AssertionError(f"advat runs {ncfg.name} at train mode "
+                             f"{tcfg.train_mode}")
+    env = env_mod.TrackEnv(ecfg, "cuda")
+    model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state = learner.init_learner(model, env, ncfg, tcfg, gen)
+    step = learner.make_train_step(model, env, ncfg, tcfg, state.opt)
+    cur = curriculum.CurriculumState.initial(tcfg)
+    torch.cuda.synchronize()
+    say("advat-init", t0, f"init_learner at {NUM_ENVS} envs, {tcfg.env_id}, "
+        f"{ncfg.name}, train mode {tcfg.train_mode}, init_step "
+        f"{tcfg.init_step}, entropy_target {tcfg.entropy_target}, amsgrad "
+        f"{tcfg.amsgrad}")
+
+    tw = time.perf_counter()
+    cur = curriculum.update(tcfg, cur, 1)
+    carry, _, _ = step(state.carry, cur.mode)
+    torch.cuda.synchronize()
+    say("advat-warm-up", tw, f"iteration 1 at mode {cur.mode}, not timed")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(flood)
+    modes, secs, metrics = [], [], []
+    for it in range(2, 2 + TRAIN_STEPS):
+        cur = curriculum.update(tcfg, cur, it)
+        t1 = time.perf_counter()
+        carry, m, _ = step(carry, cur.mode)      # a fresh pool each
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        modes.append(cur.mode)
+        metrics.append(m)
+    launches = counts(flood)
+    if sum(launches.values()) != 0:
+        raise AssertionError(f"advat launched flood kernels: {launches}")
+    if modes[0] != 0 or modes[-1] != -1:
+        raise AssertionError(f"advat's timed modes {modes} do not cross "
+                             f"from 0 to -1")
+    losses, preds = [], []
+    for mode, m in zip(modes, metrics):
+        loss, pred = m.loss.item(), m.pred_loss.item()
+        players = (m.policy_loss + 0.5 * m.value_loss).tolist()
+        rest = loss - players[0] - (players[1] if mode else 0.0)
+        want = pred if mode else 0.0
+        scale = abs(loss) + sum(abs(x) for x in players) + abs(pred)
+        if not (np.isfinite([loss, pred]).all() and pred > 0
+                and abs(rest - want) <= 1e-4 * max(1.0, scale)):
+            raise AssertionError(f"advat mode {mode}: loss {loss} = players "
+                                 f"{players} + {rest}, pred_loss {pred}")
+        losses.append(loss)
+        preds.append(pred)
+    dt = sum(secs)
+    sps = TRAIN_STEPS * NUM_ENVS * NUM_STEPS / dt
+    say("advat", t0, f"{TRAIN_STEPS} train steps in {dt:.3f} s: {sps:.1f} "
+        f"env-steps/s; step seconds {[round(x, 4) for x in secs]}; modes "
+        f"{modes}; losses {losses}; pred_losses {preds} (in the loss at "
+        f"mode -1 only); launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # where an iteration's time goes: the pool, then a step on that pool
+    t2 = time.perf_counter()
+    pool = learner.make_pool_fn(env, tcfg)(gen)
+    torch.cuda.synchronize()
+    say("advat-pool", t2, f"one reset pool of {RESET_POOL} rows (map, "
+        "spawns, zero tapes)")
+    t3 = time.perf_counter()
+    step(carry, cur.mode, (*pool, learner.init_pool_ptr(device="cuda")))
+    torch.cuda.synchronize()
+    say("advat-step", t3, f"one train step on that pool at mode {cur.mode} "
+        "(rollout, loss, backward, SharedAdam)")
+    return model, ncfg, tcfg, launches
+
+
+def phase_advat_eval(torch, flood, tconfig, env_mod, evaluate, model, ncfg,
+                     tcfg):
+    """The greedy evaluator with advat's trained players on the preset's
+    eval env; returns its launches."""
+    t0 = time.perf_counter()
+    env = env_mod.TrackEnv(tconfig.parse_env_id(tcfg.env_base), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    reset_counts(flood)
+    out = evaluate.evaluate(model, env, ncfg, gen, EVAL_EPISODES, EVAL_STEPS)
+    dt = time.perf_counter() - t0
+    launches = counts(flood)
+    if launches["flood_sweep"] == 0 or sum(launches.values()) \
+            != launches["flood_sweep"]:
+        raise AssertionError(f"advat-eval launched {launches}")
+    lens = out["ep_lens"]
+    if out["ep_returns"].shape != (EVAL_EPISODES, 2) \
+            or not np.isfinite(out["ep_returns"]).all() \
+            or lens.min() < 1 or lens.max() > EVAL_STEPS \
+            or not np.isclose(out["S_rate"], (lens >= EVAL_STEPS).mean()):
+        raise AssertionError(f"advat-eval gave {out}")
+    say("advat-eval", t0, f"{EVAL_EPISODES} episodes x {EVAL_STEPS} greedy "
+        f"steps on {tcfg.env_base} in {dt:.3f} s: S_rate "
+        f"{float(out['S_rate']):.2f}, EL_mean {float(out['EL_mean']):.2f}, "
+        f"R_mean {out['R_mean'].tolist()}; launches {launches}")
+    return launches
+
+
 def phase_sweep16_entry(torch, flood, mz, goals):
-    """flood_fields(variant="sweep16"), the int16 kernel's only entry point
+    """flood_fields(variant="sweep16"), the int16 variant's only entry point
     (as flood_fields_pallas(variant="sweep16") is in the JAX package), on one
     main-path pool's mazes and goals."""
     t0 = time.perf_counter()
@@ -542,28 +712,37 @@ def main() -> int:
     from active_tracking_rl_torch.envs import maps
     from active_tracking_rl_torch.models import dueling
     from active_tracking_rl_torch.ops import flood
-    from active_tracking_rl_torch.rl import learner
+    from active_tracking_rl_torch.rl import curriculum, evaluate, learner
 
     phase_build(flood)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, (pool_mz, pool_goals) = phase_kernel(torch, flood, maps, tconfig,
                                                gen)
-    phase_reference(torch, tconfig, env_mod, learner, dueling,
+    phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
                     torch.Generator().manual_seed(0))
-    main_launches = phase_main(
+    paths = {}
+    paths["main"] = phase_main(
         torch, flood, tconfig, env_mod, learner, dueling, "main",
         tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep",
         ("flood_relax", "flood_sweep16"))
-    maze_launches = phase_main(
+    paths["maze-main"] = phase_main(
         torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
         dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
                             flood_backend="pallas"),
         MAZE_ENV, "flood_relax", ("flood_sweep", "flood_sweep16"))
-    entry_launches = phase_sweep16_entry(torch, flood, pool_mz, pool_goals)
-    rows["flood_sweep"]["launches"] = main_launches["flood_sweep"]
-    rows["flood_relax"]["launches"] = maze_launches["flood_relax"]
-    rows["flood_sweep16"]["launches"] = entry_launches["flood_sweep16"]
+    model, ncfg, tcfg, paths["advat"] = phase_advat(
+        torch, flood, tconfig, env_mod, learner, dueling, curriculum)
+    paths["advat-eval"] = phase_advat_eval(
+        torch, flood, tconfig, env_mod, evaluate, model, ncfg, tcfg)
+    paths["sweep16-entry"] = phase_sweep16_entry(torch, flood, pool_mz,
+                                                 pool_goals)
+    # each kernel's launches on the path that runs it
+    for name, path in (("flood_sweep", "main"), ("flood_relax", "maze-main"),
+                       ("flood_sweep16", "sweep16-entry")):
+        rows[name]["launches"] = paths[path][name]
+    for name, row in rows.items():
+        row["launches_by_path"] = {p: n[name] for p, n in paths.items()}
 
     say("total", t_start)
     print(json.dumps({"kernels": [rows[k] for k in SOURCES]}), flush=True)

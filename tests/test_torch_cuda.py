@@ -1,6 +1,6 @@
-"""The three CUDA flood kernels against their plain twins on the card,
+"""The three CUDA flood launchers against their plain twins on the card,
 also at the caps of the bit-parallel BFS kernel (csrc/flood_bfs.cu) behind
-flood_sweep and flood_relax.
+flood_sweep, flood_sweep16 and flood_relax.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (the suite's conftest.py needs JAX):
@@ -103,6 +103,33 @@ def test_kernels_match_twins_at_every_word_count_on_the_card(side):
                              .astype(np.int32)).to(dev)
     for iters in (0, 17, 256):
         _check_all(mz, goals, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [24, 82, 128])
+def test_sweep16_matches_twin_at_the_caps_on_the_card(side):
+    """flood_sweep16 alone, through its own launcher and count, bit for bit
+    against its twin at every cap, on perfect mazes (closed by a wall row
+    and column at even sides), whose paths outrun the caps."""
+    dev = _card()
+    rng = np.random.RandomState(side)
+    odd = side - 1 + side % 2
+    mz = np.ones((4, side, side), np.uint8)
+    for i in range(4):
+        mz[i, :odd, :odd] = perfect_maze(odd, rng)
+    mz = torch.from_numpy(mz).to(dev)
+    goals = maps.sample_free_cells(
+        torch.rand((4, side * side), generator=torch.Generator(device=dev)
+                   .manual_seed(side), device=dev), mz, 5)
+    goals[0, -1] = -1
+    goals = goals.contiguous()
+    for iters in (0, 1, 15, 16, 17, 255, 256):
+        before = flood.FLOOD_SWEEP16.launches
+        got = flood.flood_fields(mz, goals, iters, "sweep16")
+        assert flood.FLOOD_SWEEP16.launches == before + 1
+        torch.testing.assert_close(got, flood.PLAIN["sweep16"](mz, goals,
+                                                               iters),
+                                   rtol=0, atol=0, msg=f"iters {iters}")
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's flood fill (active_tracking_rl_torch/ops/flood.py) against the
 JAX package's oracle ``envs/distance.py:distance_fields`` and the NumPy BFS
 (tests/oracles.py), bit for bit. Mirrors tests/test_flood_pallas.py. Also the
-nvcc build of both CUDA sources, against a stub compiler.
+nvcc build of the CUDA source, and of two sources at once, against a stub
+compiler.
 
 On the CPU the dispatch runs the kernels' plain twins; the CUDA kernels
 themselves are held against their twins on the card by chip_smoke.py (and by
@@ -156,23 +157,42 @@ def test_kernel_source_builds_with_nvcc_alone():
         src = kernel.library.source.read_text()
         assert f'extern "C" int {kernel.symbol}(' in src
         assert "torch/extension.h" not in src and "ATen" not in src
-    assert [lib.source.name for lib in flood.LIBRARIES] == [
-        "flood_bfs.cu", "flood_sweep.cu"]
-    assert flood.FLOOD_SWEEP.library is flood.FLOOD_RELAX.library \
-        is flood.BFS_LIB
+    assert [lib.source.name for lib in flood.LIBRARIES] == ["flood_bfs.cu"]
+    assert all(k.library is flood.BFS_LIB for k in flood.KERNELS.values())
     assert "arch=compute_90a,code=sm_90a" in flood.NVCC_FLAGS
     assert "-shared" in flood.NVCC_FLAGS
     assert flood.BUILD_DIR.name == "_build"
 
 
+def test_sweep16_binds_the_bfs_library():
+    """flood_sweep16 is the BFS kernel under its own launcher and count:
+    the library of flood_sweep, a symbol and a binding of its own, and a
+    launcher that, like flood_sweep's, reads no extra argument."""
+    sweep, sweep16 = flood.FLOOD_SWEEP, flood.FLOOD_SWEEP16
+    assert sweep16.library is sweep.library is flood.BFS_LIB
+    assert (sweep16.symbol, sweep.symbol) == ("flood_sweep16_launch",
+                                              "flood_sweep_launch")
+    assert sweep16 is not sweep and sweep16.extra == sweep.extra == 0
+    assert flood.KERNELS["sweep16"] is sweep16
+    assert flood.PLAIN["sweep16"] is flood.PLAIN["sweep"]
+    assert not hasattr(flood, "MAX_ROUNDS") and not hasattr(flood,
+                                                            "SWEEP_LIB")
+    assert not (flood.CSRC_DIR / "flood_sweep.cu").exists()
+
+
+#: two sources for the build tests: the real name and a second stub, so that
+#: building several libraries at once stays covered.
+STUB_SOURCES = ("flood_bfs.cu", "second_stub.cu")
+
+
 @pytest.fixture
 def fake_nvcc(tmp_path, monkeypatch):
-    """flood.CSRC_DIR (with both sources) and BUILD_DIR in tmp_path; nvcc
+    """flood.CSRC_DIR (with two stub sources) and BUILD_DIR in tmp_path; nvcc
     replaced by a stub that writes its -o file. Yields the list of the
     stub's command lines."""
     (tmp_path / "csrc").mkdir()
-    for lib in flood.LIBRARIES:
-        (tmp_path / "csrc" / lib.source_name).write_text("// kernel source")
+    for name in STUB_SOURCES:
+        (tmp_path / "csrc" / name).write_text("// kernel source")
     monkeypatch.setattr(flood, "CSRC_DIR", tmp_path / "csrc")
     monkeypatch.setattr(flood, "BUILD_DIR", tmp_path / "_build")
     calls = []
@@ -189,7 +209,7 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("lib_is_newer", [True, False])
 def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
-    for i, source in enumerate(["flood_bfs.cu", "flood_sweep.cu"]):
+    for i, source in enumerate(STUB_SOURCES):
         library = flood.KernelLibrary(source)
         calls = len(fake_nvcc)
         lib = library.build()         # nothing built yet: nvcc runs
@@ -206,34 +226,38 @@ def test_build_reuses_only_a_newer_library(fake_nvcc, lib_is_newer):
 
 def test_each_library_rebuilds_for_its_own_source_only(fake_nvcc):
     """Touching one source rebuilds its library and reuses the other."""
-    sweep, bfs = (flood.KernelLibrary("flood_sweep.cu"),
-                  flood.KernelLibrary("flood_bfs.cu"))
-    libs = [sweep.build(), bfs.build()]
+    other, bfs = (flood.KernelLibrary(STUB_SOURCES[1]),
+                  flood.KernelLibrary(STUB_SOURCES[0]))
+    libs = [other.build(), bfs.build()]
     for lib in libs:
         os.utime(lib, (1e9 + 20, 1e9 + 20))
-    os.utime(sweep.source, (1e9, 1e9))
+    os.utime(other.source, (1e9, 1e9))
     os.utime(bfs.source, (1e9 + 40, 1e9 + 40))   # newer than its library
     assert len(fake_nvcc) == 2
-    sweep.build()
+    other.build()
     bfs.build()
     assert len(fake_nvcc) == 3 and fake_nvcc[-1][-1] == str(bfs.source)
-    assert sweep.build_seconds is None and bfs.build_seconds is not None
+    assert other.build_seconds is None and bfs.build_seconds is not None
 
 
 def test_smoke_build_phase_reports_a_reused_library(fake_nvcc, monkeypatch,
                                                     capsys):
     """chip_smoke.py's build line, run twice in one checkout: one nvcc per
-    source, started together, then both libraries reused."""
+    source, started together, then every library reused; with the one real
+    library, and with two stub libraries."""
     import chip_smoke
-    monkeypatch.setattr(flood, "LIBRARIES", (
-        flood.KernelLibrary("flood_bfs.cu"),
-        flood.KernelLibrary("flood_sweep.cu")))
-    chip_smoke.phase_build(flood)
-    out = capsys.readouterr().out
-    assert out.count("nvcc") == 2 and "reused" not in out
-    chip_smoke.phase_build(flood)
-    assert capsys.readouterr().out.count("reused") == 2
-    assert len(fake_nvcc) == 2
+    for names in (STUB_SOURCES[:1], STUB_SOURCES):
+        calls = len(fake_nvcc)
+        monkeypatch.setattr(flood, "LIBRARIES", tuple(
+            flood.KernelLibrary(n) for n in names))
+        chip_smoke.phase_build(flood)
+        out = capsys.readouterr().out
+        assert out.count("nvcc") == len(names) and "reused" not in out
+        chip_smoke.phase_build(flood)
+        assert capsys.readouterr().out.count("reused") == len(names)
+        assert len(fake_nvcc) == calls + len(names)
+        for lib in flood.LIBRARIES:     # the next round builds afresh
+            lib.path.unlink()
 
 
 @pytest.mark.cuda

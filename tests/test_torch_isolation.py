@@ -40,7 +40,7 @@ names = ["chip_smoke"] + [
                                           "active_tracking_rl_torch.")]
 for name in names:
     importlib.import_module(name)
-print(len(names), "modules")
+print(len(names), "modules", *names)
 """
 
 
@@ -48,4 +48,8 @@ def test_port_and_smoke_import_no_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) > 20
+    out = res.stdout.split()
+    assert int(out[0]) > 20
+    for name in ("rl.curriculum", "rl.evaluate", "models.dueling",
+                 "ops.flood"):
+        assert f"active_tracking_rl_torch.{name}" in out, name

@@ -21,7 +21,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -36,46 +35,18 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig, TrainConfig
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
-from active_tracking_rl_torch.rl.learner import (StepNoise, init_learner,
-                                                 init_pool_ptr, make_pool_fn,
-                                                 make_train_step)
+from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
+                                                 make_pool_fn, make_train_step)
 from active_tracking_rl_torch.rl.optim import make_optimizer_for
 from active_tracking_rl_torch.rl.rollout import TrainCarry
-from tests.torch_draws import assert_state_equal, torch_cfg, torch_state
+from tests.torch_draws import (assert_state_equal, capture_grads, step_noise,
+                               torch_cfg, torch_state)
 
 ENV_ID = "Track2D-BlockPartialNav-v0"
 FAST = dict(nav_goal_candidates=4, flood_iters=96, tape_len=96)
 B, P, T = 8, 8, 8
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
-
-
-def _capture_grads(inner: optax.GradientTransformation):
-    """The same transformation, which also hands back the raw gradients in
-    its state, so a jitted JAX step exposes them."""
-    def init(params):
-        return inner.init(params), jax.tree_util.tree_map(jnp.zeros_like,
-                                                          params)
-
-    def update(grads, state, params=None):
-        updates, s = inner.update(grads, state[0], params)
-        return updates, (s, grads)
-
-    return optax.GradientTransformation(init, update)
-
-
-def _step_noise(carry_key, num_actions):
-    """The Gumbel noise the JAX train step draws from its carry key."""
-    _, k_scan, k_next = jax.random.split(carry_key, 3)
-    acts = []
-    for key_t in jax.random.split(k_scan, T):
-        km, _ = jax.random.split(key_t)
-        k0, k1 = jax.random.split(km)
-        acts.append(np.stack([np.asarray(jax.random.gumbel(k, (B, num_actions)))
-                              for k in (k0, k1)], axis=1))
-    boot = jax.random.gumbel(jax.random.fold_in(k_next, 7), (B, num_actions))
-    return StepNoise(torch.from_numpy(np.stack(acts)),
-                     torch.from_numpy(np.array(boot)))
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +58,7 @@ def both_steps():
     jn = JNetConfig.from_name("maze-lstm", aux="none")
     jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
     params = jm.init(jax.random.PRNGKey(0))
-    opt = _capture_grads(j_opt_for(jn, jt, params))
+    opt = capture_grads(j_opt_for(jn, jt, params))
     reset = jax.jit(lambda k: jenv.reset_batch(k, B))
     state, obs = reset(jax.random.PRNGKey(1))
     pool_state, pool_obs = reset(jax.random.PRNGKey(2))
@@ -115,7 +86,7 @@ def both_steps():
     tc1, tm1, tptr1 = ts(tcarry, 0, (torch_state(pool_state),
                                      torch.from_numpy(np.array(pool_obs)),
                                      init_pool_ptr(device="cpu")),
-                         _step_noise(carry.key, tc.num_actions))
+                         step_noise(carry.key, T, B, tc.num_actions))
     tgrads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
               for n, p in model.named_parameters()}
     return dict(jax=(p1, grads, c1, m1, ptr1),

@@ -102,6 +102,55 @@ def test_dueling_loss_and_grads_match_jax(mode):
                                    **TOL, err_msg=k)
 
 
+@pytest.mark.parametrize("mode", [0, 1, -1, 2])
+@pytest.mark.parametrize("aux", [True, False])
+def test_aux_pred_loss_and_grads_match_jax(mode, aux):
+    """The TAT aux head's L1 loss, sum_t |r_pred - r_tracker| per row: in
+    the stats always (with aux), in the loss at every mode but 0; the
+    gradient reaches r_pred only where it enters. Without aux no r_pred
+    goes in and pred_loss is zero."""
+    d = _traj(7 + mode)
+    r_pred = np.random.RandomState(11 + mode).randn(T, B).astype(np.float32)
+
+    def jax_mean_loss(values, log_probs, r_preds):
+        stats = jax.vmap(
+            lambda r, v, b, lp, e, dn, rp: j_loss(
+                r, v, b, lp, e, dn, rp if aux else None, jnp.int32(mode),
+                0.9, 1.0, 0.01, 0.2, aux),
+            in_axes=(1, 1, 0, 1, 1, 1, 1))(
+                d["rewards"], values, d["bootstrap"], log_probs,
+                d["entropies"], d["done"], r_preds)
+        return stats.loss.mean(), stats
+
+    (want, wstats), wgrads = jax.value_and_grad(
+        jax_mean_loss, argnums=(0, 1, 2), has_aux=True)(
+            d["values"], d["log_probs"], r_pred)
+    leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in
+              (("values", d["values"]), ("log_probs", d["log_probs"]),
+               ("r_pred", r_pred))}
+    stats = dueling_loss(torch.from_numpy(d["rewards"]), leaves["values"],
+                         torch.from_numpy(d["bootstrap"]), leaves["log_probs"],
+                         torch.from_numpy(d["entropies"]),
+                         torch.from_numpy(d["done"]), mode, 0.9, 1.0, 0.01,
+                         0.2, leaves["r_pred"] if aux else None)
+    loss = stats.loss.mean()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), **TOL)
+    np.testing.assert_allclose(stats.loss.detach().numpy(),
+                               np.asarray(wstats.loss), **TOL)
+    np.testing.assert_allclose(stats.pred_loss.detach().numpy(),
+                               np.asarray(wstats.pred_loss), **TOL)
+    assert bool((stats.pred_loss > 0).all()) == aux
+    for k, wg in zip(("values", "log_probs", "r_pred"), wgrads):
+        got = leaves[k].grad
+        if got is None:          # r_pred outside the loss: JAX's grad is 0
+            assert not np.asarray(wg).any(), k
+            continue
+        np.testing.assert_allclose(got.numpy(), np.asarray(wg), **TOL,
+                                   err_msg=k)
+    assert (leaves["r_pred"].grad is not None) == (aux and mode != 0)
+
+
 @pytest.mark.parametrize("scale", [1e-2, 1e3])   # below and above the clip
 def test_shared_adam_with_clip_matches_optax_chain(scale):
     rng = np.random.RandomState(3)

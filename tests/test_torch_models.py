@@ -117,7 +117,8 @@ def test_step_both_matches_jax(models):
     with torch.no_grad():
         got = tm.step_both(*map(torch.from_numpy, (obs, hx, cx, gumbel)))
     names = ["values", "actions", "entropies", "log_probs", "hx", "cx"]
-    assert len(got) == len(names) and want[6] is None    # no TAT aux head
+    # the seventh value, r_pred, is None in both: no TAT aux head
+    assert len(got) == len(want) == 7 and got[6] is None and want[6] is None
     for name, g, w in zip(names, got, want[:6]):
         if name == "actions":
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import torch
 
 from active_tracking_rl_tpu.envs.maps import maze_loop_bounds
@@ -27,6 +28,7 @@ from active_tracking_rl_torch.envs.env import ResetDraws
 from active_tracking_rl_torch.envs.maps import MapDraws, SpawnDraws
 from active_tracking_rl_torch.envs.opponents import NavDraws, RamDraws
 from active_tracking_rl_torch.envs.types import EnvState
+from active_tracking_rl_torch.rl.learner import StepNoise
 
 torch.set_num_threads(1)
 
@@ -196,3 +198,37 @@ def assert_state_equal(got: EnvState, want: JaxEnvState) -> None:
         w = np.asarray(getattr(want, f))
         assert g.dtype == w.dtype, (f, g.dtype, w.dtype)
         np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+def step_noise(carry_key, num_steps: int, num_envs: int,
+               num_actions: int) -> StepNoise:
+    """The Gumbel noise a JAX train step draws from its carry key: per step
+    each player's sampling noise (rl/rollout.py run_rollout,
+    models/dueling.py step_both), then the tracker's at s_T
+    (rl/learner.py loss_fn)."""
+    _, k_scan, k_next = jax.random.split(carry_key, 3)
+    acts = []
+    for key_t in jax.random.split(k_scan, num_steps):
+        km, _ = jax.random.split(key_t)
+        acts.append(np.stack([np.asarray(jax.random.gumbel(
+            k, (num_envs, num_actions))) for k in jax.random.split(km)],
+            axis=1))
+    boot = jax.random.gumbel(jax.random.fold_in(k_next, 7),
+                             (num_envs, num_actions))
+    return StepNoise(torch.from_numpy(np.stack(acts)),
+                     torch.from_numpy(np.array(boot)))
+
+
+def capture_grads(inner: optax.GradientTransformation
+                  ) -> optax.GradientTransformation:
+    """The same transformation, which also hands back the raw gradients in
+    its state, so a jitted JAX train step exposes them."""
+    def init(params):
+        return inner.init(params), jax.tree_util.tree_map(jnp.zeros_like,
+                                                          params)
+
+    def update(grads, state, params=None):
+        updates, s = inner.update(grads, state[0], params)
+        return updates, (s, grads)
+
+    return optax.GradientTransformation(init, update)
