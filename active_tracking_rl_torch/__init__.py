@@ -1,10 +1,11 @@
 """active_tracking_rl_torch — the PyTorch/CUDA port of active_tracking_rl_tpu.
 
-The package mirrors the JAX package's layout (``envs/ models/ ops/ rl/``):
-each module's reference is the JAX module of the same name. It imports torch
-and numpy only. Entry points take an explicit ``device`` (default
-``"cuda"``); every function that uses randomness takes its draws as tensors
-at a seam, produced in production by a ``torch.Generator``.
+The package mirrors the JAX package's layout (``envs/ models/ ops/ rl/ run/
+utils/``): each module's reference is the JAX module of the same name. It
+imports torch and numpy only. Entry points take an explicit ``device``
+(default ``"cuda"``; the CLIs in ``run/`` take ``--device``); every
+function that uses randomness takes its draws as tensors at a seam,
+produced in production by a ``torch.Generator``.
 
 The hand-written kernel is the BFS flood fill, bound in ``ops/flood.py``:
 one bit-parallel frontier BFS (``csrc/flood_bfs.cu``) behind the launchers

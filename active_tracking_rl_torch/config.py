@@ -1,8 +1,8 @@
 """Typed configuration: the port's own copy of the JAX package's config.
 
 Same env-id grammar (72 ids), same field names and defaults as
-``active_tracking_rl_tpu/config.py``, minus ``bf16`` and ``remat`` (not
-ported yet). ``flood_backend`` keeps the JAX names; each picks a flood
+``active_tracking_rl_tpu/config.py``, except ``TrainConfig.remat``, which
+defaults to on here (see its comment). ``flood_backend`` keeps the JAX names; each picks a flood
 implementation, and the tensor's device picks the kernel or its plain twin
 (``envs/distance.py:distance_fields_backend``).
 """
@@ -118,6 +118,9 @@ class NetConfig:
     rnn_out: int = 128
     stack_frames: int = 1
     aux_reward: bool = True
+    #: bfloat16 inputs to the encoder's convs and fc and the cell's matmuls
+    #: (parameters, heads and the recurrent state stay float32).
+    bf16: bool = False
 
     @classmethod
     def from_name(cls, name: str, rnn_out: int = 128, stack_frames: int = 1,
@@ -165,6 +168,16 @@ class TrainConfig:
     reset_pool: int = 256            # fresh episodes generated per iteration
     log_dir: str = "logs"
     checkpoint_every: int = 200
+    #: bfloat16 model inputs; the trainer CLI builds its NetConfig with
+    #: this value (run/train.py:net_config_from_args).
+    bf16: bool = False
+    #: rematerialize each rollout step's model forward: the backward pass
+    #: recomputes it from the uint8 frame stack, h, c and the step's noise
+    #: instead of keeping its activations. A pure recomputation with
+    #: bit-identical gradients. On by default, as the JAX trainer CLI and
+    #: bench run it (`--no-remat` turns it off); the JAX dataclass's own
+    #: default is False (active_tracking_rl_tpu/config.py:228).
+    remat: bool = True
 
 
 #: the JAX package's presets (the reference README's runs), field for field.

@@ -1,18 +1,23 @@
 """Two-player dueling model, batched.
 
-Port of ``active_tracking_rl_tpu/models/dueling.py`` for the discrete
-networks ``maze-lstm`` and ``tat-maze-lstm``: A3CPlayer is CNNMaze ->
-LSTMCell -> value and policy heads. TATPlayer, the tracker-aware target,
-sees the tracker's and its own observation joined on the stack axis, adds
-a linear embedding of the tracker's one-hot action to the features before
-the LSTM, and predicts the tracker's reward with an aux head.
-``step_both`` samples the tracker, then the target, by their noise (train)
-or greedily (test). Single-player models, the other encoders and cells and
-continuous heads wait.
+Port of ``active_tracking_rl_tpu/models/dueling.py`` for every discrete
+network ``{tat-}?{cnn|icml|maze}{-lstm|-gru}?``: A3CPlayer is an encoder
+(CNNMaze, ICML or CNNSimple) -> an LSTM or GRU cell, or none -> value and
+policy heads. TATPlayer, the tracker-aware target, sees the tracker's and
+its own observation joined on the stack axis, adds a linear embedding of
+the tracker's one-hot action to the features before the cell, and predicts
+the tracker's reward with an aux head. ``step_both`` samples the tracker,
+then the target, by their noise (train) or greedily (test). Continuous
+heads and single-player models wait (ROADMAP §1 items 6 and 7).
+
+With ``NetConfig.bf16`` the encoder's convs and fc and the cell's matmuls
+take bfloat16 inputs; parameters, heads and the recurrent state stay
+float32.
 
 ``params_from_flax`` converts the JAX package's params (flax tree of numpy
 arrays) into this module's ``state_dict``: Dense kernels are (in, out) and
-become (out, in); conv kernels are HWIO and become OIHW.
+become (out, in); conv kernels are HWIO and become OIHW; cell weights
+(in, gates * H) become (gates * H, in). ``params_to_flax`` is its inverse.
 """
 
 from __future__ import annotations
@@ -24,10 +29,13 @@ import torch
 from torch import nn
 
 from active_tracking_rl_torch.config import NetConfig
-from active_tracking_rl_torch.models.encoders import CNNMaze
+from active_tracking_rl_torch.models.encoders import FLAX_NAMES, make_encoder
 from active_tracking_rl_torch.models.heads import ActionSample, sample_discrete
 from active_tracking_rl_torch.models.init import init_linear_
-from active_tracking_rl_torch.models.recurrent import LSTMCell
+from active_tracking_rl_torch.models.recurrent import GRUCell, LSTMCell
+
+#: cfg.rnn -> the cell; the player holds it under that name
+CELLS = {"lstm": LSTMCell, "gru": GRUCell}
 
 
 class PlayerOut(NamedTuple):
@@ -39,40 +47,61 @@ class PlayerOut(NamedTuple):
 
 
 class A3CPlayer(nn.Module):
-    """CNNMaze -> LSTMCell -> value and policy heads."""
+    """Encoder -> LSTM or GRU cell (or none) -> value and policy heads."""
 
     def __init__(self, cfg: NetConfig, num_actions: int,
                  obs_hw: Tuple[int, int], stack_frames: Optional[int] = None):
         super().__init__()
-        if cfg.encoder != "maze" or cfg.rnn != "lstm" or cfg.continuous:
-            raise NotImplementedError(f"network {cfg.name!r} is not ported yet")
-        self.encoder = CNNMaze(obs_hw, stack_frames or cfg.stack_frames)
-        self.lstm = LSTMCell(self.encoder.out_dim, cfg.rnn_out)
-        self.value = nn.Linear(cfg.rnn_out, 1)
-        self.policy = nn.Linear(cfg.rnn_out, num_actions)
+        if cfg.continuous:
+            raise NotImplementedError(
+                f"network {cfg.name!r}: continuous heads are not ported yet "
+                f"(ROADMAP §1 item 6)")
+        self.encoder = make_encoder(cfg.encoder, obs_hw,
+                                    stack_frames or cfg.stack_frames, cfg.bf16)
+        self.rnn = cfg.rnn
+        head_in = self.encoder.out_dim
+        if cfg.rnn != "none":
+            setattr(self, cfg.rnn, CELLS[cfg.rnn](self.encoder.out_dim,
+                                                  cfg.rnn_out, cfg.bf16))
+            head_in = cfg.rnn_out
+        self.value = nn.Linear(head_in, 1)
+        self.policy = nn.Linear(head_in, num_actions)
+
+    @property
+    def cell(self) -> Optional[nn.Module]:
+        return None if self.rnn == "none" else getattr(self, self.rnn)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.encoder.reset_parameters(generator)
-        self.lstm.reset_parameters(generator)
+        if self.cell is not None:
+            self.cell.reset_parameters(generator)
         init_linear_(self.value, generator)
         init_linear_(self.policy, generator)
 
+    def core(self, feat: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        """The cell on the features -> (head input, h', c'); without a cell
+        the features go to the heads and h, c pass through."""
+        if self.cell is None:
+            return feat, h, c
+        h, c = self.cell(feat, h, c)
+        return h, h, c
+
     def forward(self, obs: torch.Tensor, h: torch.Tensor,
                 c: torch.Tensor) -> PlayerOut:
-        h, c = self.lstm(self.encoder(obs), h, c)
-        return PlayerOut(self.value(h), self.policy(h), h, c)
+        feat, h, c = self.core(self.encoder(obs), h, c)
+        return PlayerOut(self.value(feat), self.policy(feat), h, c)
 
 
 class TATPlayer(A3CPlayer):
-    """The tracker-aware target: CNNMaze over 2k frames (the tracker's k,
-    then its own), plus fc_action_tracker(one-hot tracker action), ->
-    LSTMCell -> value, policy and reward_aux heads."""
+    """The tracker-aware target: the encoder over 2k frames (the tracker's
+    k, then its own), plus fc_action_tracker(one-hot tracker action), ->
+    the cell -> value, policy and reward_aux heads."""
 
     def __init__(self, cfg: NetConfig, num_actions: int,
                  obs_hw: Tuple[int, int]):
         super().__init__(cfg, num_actions, obs_hw, 2 * cfg.stack_frames)
         self.fc_action_tracker = nn.Linear(num_actions, self.encoder.out_dim)
-        self.reward_aux = nn.Linear(cfg.rnn_out, 1)
+        self.reward_aux = nn.Linear(self.value.in_features, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
@@ -82,9 +111,9 @@ class TATPlayer(A3CPlayer):
     def forward(self, obs: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                 action_tracker: torch.Tensor) -> PlayerOut:
         feat = self.encoder(obs) + self.fc_action_tracker(action_tracker)
-        h, c = self.lstm(feat, h, c)
-        return PlayerOut(self.value(h), self.policy(h), h, c,
-                         self.reward_aux(h))
+        feat, h, c = self.core(feat, h, c)
+        return PlayerOut(self.value(feat), self.policy(feat), h, c,
+                         self.reward_aux(feat))
 
 
 class DuelingModel(nn.Module):
@@ -155,41 +184,112 @@ def build_model(net_cfg: NetConfig, num_actions: int, obs_hw: Tuple[int, int],
     return model
 
 
-# flax module path -> this package's module path, per player
-_FLAX_NAMES = {
-    ("CNNMaze_0", "Conv_0"): "encoder.conv0",
-    ("CNNMaze_0", "Conv_1"): "encoder.conv1",
-    ("CNNMaze_0", "Dense_0"): "encoder.fc",
-    ("ValueNet_0", "Dense_0"): "value",
-    ("PolicyNet_0", "Dense_0"): "policy",
-}
-_LSTM_NAMES = {"w_ih": "weight_ih", "w_hh": "weight_hh",
+# flax module names of a player's layers, other than the encoder's
+_FLAX_DENSE = {("ValueNet_0", "Dense_0"): "value",
+               ("PolicyNet_0", "Dense_0"): "policy",
+               ("fc_action_tracker",): "fc_action_tracker",
+               ("reward_aux",): "reward_aux"}
+_FLAX_CELLS = {"LSTMCell_0": "lstm", "GRUCell_0": "gru"}
+_CELL_NAMES = {"w_ih": "weight_ih", "w_hh": "weight_hh",
                "b_ih": "bias_ih", "b_hh": "bias_hh"}
-# TATPlayer's named Dense layers: the same names in both packages
-_TAT_NAMES = ("fc_action_tracker", "reward_aux")
+_ENCODERS = {v: k for k, v in FLAX_NAMES.items()}
+
+
+def _player_names(tree: Mapping) -> Dict[Tuple[str, ...], str]:
+    """flax path -> torch module path, for one player's tree: every Conv_i
+    and Dense_0 of its encoder, its cell and its Dense layers."""
+    names = {}
+    for outer, sub in tree.items():
+        if outer in _ENCODERS:
+            for inner in sub:
+                names[(outer, inner)] = "encoder." + (
+                    "fc" if inner == "Dense_0"
+                    else "conv" + inner[len("Conv_"):])
+        elif outer in _FLAX_CELLS:
+            names[(outer,)] = _FLAX_CELLS[outer]
+    for path, name in _FLAX_DENSE.items():
+        node = tree
+        for part in path:
+            node = node.get(part, {})
+        if node:
+            names[path] = name
+    return names
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]) -> Mapping:
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _to_torch(x: np.ndarray) -> torch.Tensor:
+    if x.ndim == 4:                           # HWIO -> OIHW
+        x = x.transpose(3, 2, 0, 1)
+    elif x.ndim == 2:                         # (in, out) -> (out, in)
+        x = x.T
+    return torch.tensor(np.ascontiguousarray(x))
+
+
+def _to_flax(t: torch.Tensor) -> np.ndarray:
+    x = t.detach().cpu().numpy()
+    if x.ndim == 4:                           # OIHW -> HWIO
+        x = x.transpose(2, 3, 1, 0)
+    elif x.ndim == 2:
+        x = x.T
+    return np.ascontiguousarray(x)
 
 
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX params {"player0": ..., "player1": ...} -> DuelingModel state_dict."""
+    """JAX params {"player0": ..., "player1": ...} (either player alone, too)
+    -> DuelingModel state_dict entries."""
     out = {}
-
-    def put(name: str, leaf: Mapping) -> None:
-        kernel = np.asarray(leaf["kernel"])
-        if kernel.ndim == 4:                           # HWIO -> OIHW
-            weight = kernel.transpose(3, 2, 0, 1)
-        else:                                          # (in, out) -> (out, in)
-            weight = kernel.T
-        out[f"{name}.weight"] = torch.tensor(weight)
-        out[f"{name}.bias"] = torch.tensor(np.asarray(leaf["bias"]))
-
     for player, tree in params.items():
-        for (outer, inner), name in _FLAX_NAMES.items():
-            put(f"{player}.{name}", tree[outer][inner])
-        for name in _TAT_NAMES:
-            if name in tree:
-                put(f"{player}.{name}", tree[name])
-        for flax_name, name in _LSTM_NAMES.items():
-            w = np.asarray(tree["LSTMCell_0"][flax_name])
-            out[f"{player}.lstm.{name}"] = torch.tensor(w.T if w.ndim == 2
-                                                        else w)
+        for path, name in _player_names(tree).items():
+            leaf = _get(tree, path)
+            if name in _FLAX_CELLS.values():
+                for flax_name, torch_name in _CELL_NAMES.items():
+                    out[f"{player}.{name}.{torch_name}"] = _to_torch(
+                        np.asarray(leaf[flax_name]))
+            else:
+                out[f"{player}.{name}.weight"] = _to_torch(
+                    np.asarray(leaf["kernel"]))
+                out[f"{player}.{name}.bias"] = _to_torch(
+                    np.asarray(leaf["bias"]))
     return out
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor],
+                   net_cfg: NetConfig) -> Dict[str, Dict]:
+    """DuelingModel state_dict (or entries of either player) -> the JAX
+    package's params tree of numpy arrays, the inverse of
+    ``params_from_flax``."""
+    cells = {v: k for k, v in _FLAX_CELLS.items()}
+    dense = {v: k for k, v in _FLAX_DENSE.items()}
+    leaves = {v: k for k, v in _CELL_NAMES.items()}
+    out: Dict[str, Dict] = {}
+    for key, value in state_dict.items():
+        player, *mod, leaf = key.split(".")
+        if mod[0] == "encoder":
+            inner = ("Dense_0" if mod[1] == "fc"
+                     else "Conv_" + mod[1][len("conv"):])
+            path = (FLAX_NAMES[net_cfg.encoder], inner)
+        elif mod[0] in cells:
+            path = (cells[mod[0]],)
+        else:
+            path = dense[mod[0]]
+        if mod[0] in cells:
+            name = leaves[leaf]
+        else:
+            name = "kernel" if leaf == "weight" else "bias"
+        node = out.setdefault(player, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = _to_flax(value)
+    return _sorted(out)
+
+
+def _sorted(tree):
+    """Keys in sorted order at every level, as in a JAX params tree."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _sorted(tree[k]) for k in sorted(tree)}

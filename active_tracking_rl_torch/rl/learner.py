@@ -1,9 +1,9 @@
-"""The synchronous learner: rollout -> loss -> gradients -> SharedAdam.
+"""The synchronous learner: rollout -> loss -> gradients -> optimizer.
 
 Port of ``active_tracking_rl_tpu/rl/learner.py``. A train step runs the
 rollout, bootstraps V(s_T), computes the dueling loss averaged over rows,
 backpropagates through the 20-step window and applies one clipped SharedAdam
-update to the parameters of the trained player(s). Parameters live in the
+or SharedRMSprop update to the parameters of the trained player(s). Parameters live in the
 model and optimizer and are updated in place.
 """
 
@@ -19,8 +19,7 @@ from active_tracking_rl_torch.envs.types import EnvState
 from active_tracking_rl_torch.models.dueling import DuelingModel
 from active_tracking_rl_torch.ops import noise as noise_mod
 from active_tracking_rl_torch.ops.losses import dueling_loss
-from active_tracking_rl_torch.rl.optim import (SharedAdam, global_norm,
-                                               make_optimizer_for)
+from active_tracking_rl_torch.rl.optim import global_norm, make_optimizer_for
 from active_tracking_rl_torch.rl.rollout import (TrainCarry,
                                                  draw_action_noise, init_carry,
                                                  obs_to_model, run_rollout)
@@ -67,7 +66,7 @@ def draw_step_noise(num_steps: int, num_envs: int, num_actions: int,
 
 
 def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
-                    tcfg: TrainConfig, opt: SharedAdam):
+                    tcfg: TrainConfig, opt: torch.optim.Optimizer):
     """train_step(carry, mode, pool=None, noise=None) -> (carry', metrics, ptr').
 
     `mode` is the loss's train mode (0 tracker, 1 target, else both).
@@ -139,7 +138,7 @@ def make_pool_fn(env: TrackEnv, tcfg: TrainConfig):
 
 class LearnerState(NamedTuple):
     model: DuelingModel
-    opt: SharedAdam
+    opt: torch.optim.Optimizer
     carry: TrainCarry
 
 

@@ -7,15 +7,22 @@ tape); terminated rows take fresh episodes from the reset pool, with their
 frame stack refilled and their recurrent state zeroed. The carry's
 recurrent state enters detached, which truncates BPTT at the rollout
 boundary. A TAT target's predictions of the tracker's reward are kept for
-the aux loss. Rematerialization (``remat``) waits.
+the aux loss.
+
+With ``tcfg.remat`` each step's model forward runs under
+``torch.utils.checkpoint``: autograd keeps only its inputs (the uint8 frame
+stack, h, c and the step's noise) and the backward pass recomputes the
+forward from them, which gives the same gradients bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from active_tracking_rl_torch.config import NetConfig, TrainConfig
 from active_tracking_rl_torch.envs.env import TrackEnv
@@ -101,14 +108,22 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
     ptr = (torch.zeros((), dtype=torch.int64, device=env.device)
            if pool_ptr is None else pool_ptr)
 
+    def model_step(obs_stack, hx, cx, noise):
+        return model.step_both(obs_to_model(obs_stack), hx, cx, noise)
+
+    if tcfg.remat and torch.is_grad_enabled():
+        # the forward draws nothing, so no RNG state needs keeping
+        model_step = functools.partial(checkpoint, model_step,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+
     env_state, obs_stack = carry.env_state, carry.obs_stack
     hx, cx = carry.hx.detach(), carry.cx.detach()
     k = obs_stack.shape[2]
     outs, r_preds = [], []
     for t in range(tcfg.num_steps):
         (values, actions, entropies, log_probs, hx, cx,
-         r_pred) = model.step_both(obs_to_model(obs_stack), hx, cx,
-                                   action_noise[t])
+         r_pred) = model_step(obs_stack, hx, cx, action_noise[t])
         r_preds.append(r_pred)
         env_state, obs, rewards, done, _ = env.step(env_state, actions)
         ep_return = torch.where(done[:, None], env_state.c_reward, 0.0)

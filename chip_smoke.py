@@ -27,9 +27,11 @@ Phases (each prints one line with its seconds):
      to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
      config and Track2D-MazePartialRPF-v0 on the relaxation kernel; one
      8-step train step's loss to 1e-4 relative, on the Block main path's id
-     and on Track2D-MazeFullRPF-v0, and one AD-VAT train step at mode -1
-     (loss and pred_loss); and the greedy evaluator on the AD-VAT eval env,
-     8 episodes of 60 steps, episode lengths equal and returns to 1e-5;
+     and on Track2D-MazeFullRPF-v0, one AD-VAT train step at mode -1
+     (loss and pred_loss), and one each of maze-gru with SharedRMSprop,
+     icml-lstm on Full obs and tat-cnn-lstm on Full obs; and the greedy
+     evaluator on the AD-VAT eval env, 8 episodes of 60 steps, episode
+     lengths equal and returns to 1e-5;
   5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
      maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
      refreshed every iteration, 20 steps: init_learner, one untimed warm-up
@@ -56,7 +58,31 @@ Phases (each prints one line with its seconds):
      steps; its reset must launch flood_sweep and no other flood kernel;
      prints S_rate, EL_mean and the seconds;
   9. sweep16-entry: flood_fields(variant="sweep16"), the int16 variant's
-     only entry point, on one main-path reset pool's mazes and goals.
+     only entry point, on one main-path reset pool's mazes and goals;
+ 10. cli-train: the trainer CLI, `run/train.py:main`, at the JAX CLI's
+     defaults (AD-VAT: tat-maze-lstm on Track2D-BlockPartialPZR-v0, train
+     mode -1, remat on, evaluated on Track2D-BlockPartialNav-v0) at 4096
+     envs, a pool of 512, init_step 3, 6 iterations, a checkpoint every 3;
+     every iteration's metrics finite (--debug-nans), the JSONL rows of
+     iteration 1 and the evals at 3 and 6, the parameter files,
+     train_state.pt and ckpt_meta.json at 6; flood_sweep launched exactly
+     once per eval reset and no other kernel;
+ 11. cli-resume: --resume of that run to iteration 8; before it steps, the
+     parameters, optimizer state, carry and generator state it loaded equal
+     the saved ones and the first run's last, bit for bit; it starts at
+     iteration 7 with the saved curriculum and watermark;
+ 12. cli-eval: run/eval.py on cli-train's tracker and target files, 100
+     episodes on Nav: S_rate and EL_mean equal, R_mean to 1e-5, those of
+     rl/evaluate.py on the same parameters and seed; then
+     run/eval_matrix.py with the tracker (2 seeds, Wilson CI);
+ 13. cli-nets: the CLI at 1024 envs, a pool of 256, 2 iterations, with
+     maze-gru + RMSprop, icml-lstm on Full obs, tat-cnn-gru on Full obs
+     with --bf16, and tat-maze-lstm with --no-remat; then one train step's
+     gradients with and without remat from one state, to 1e-5 relative;
+ 14. learn: tests/test_learning_smoke.py's bar through the library:
+     maze-lstm on Block-Ram (remat off, as there), 150 iterations at 128
+     envs must lift the greedy return by more than 30 and the episode
+     length by more than 20.
 Then one JSON line with the kernel table (each row also carries the levels
 its timed output implies and its launches on every path), the card's line
 from nvidia-smi, and the last line {"ok": true, "device": {...}}. Any
@@ -70,6 +96,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +115,36 @@ ADVAT_PRESET = "advat-2d"
 #: the curriculum's warmup: iterations below it train mode 0
 ADVAT_INIT_STEP = 3
 EVAL_EPISODES, EVAL_STEPS = 100, 500
+
+#: (env id, train mode, network, optimizer) of the card-vs-CPU train steps
+#: of the networks and optimizer beyond the main paths'
+REFERENCE_NETS = (
+    ("Track2D-BlockPartialNav-v0", 0, "maze-gru", "RMSprop"),
+    ("Track2D-BlockFullNav-v0", 0, "icml-lstm", "Adam"),
+    ("Track2D-BlockFullPZR-v0", -1, "tat-cnn-lstm", "Adam"))
+
+#: the trainer CLI's AD-VAT run: the JAX CLI's defaults at full width
+CLI_TRAIN_FLAGS = ["--num-envs", "4096", "--reset-pool", "512",
+                   "--init-step", "3", "--total-iters", "6",
+                   "--checkpoint-every", "3", "--run-name", "smoke",
+                   "--debug-nans"]
+#: the CLI with each other network, 2 iterations at 1024 envs, a pool of 256
+CLI_NETS = (
+    ["--env", "Track2D-BlockPartialNav-v0", "--network", "maze-gru",
+     "--optimizer", "RMSprop", "--train-mode", "0"],
+    ["--env", "Track2D-BlockFullNav-v0", "--env-base",
+     "Track2D-BlockFullNav-v0", "--network", "icml-lstm", "--train-mode",
+     "0"],
+    ["--env", "Track2D-BlockFullPZR-v0", "--env-base",
+     "Track2D-BlockFullNav-v0", "--network", "tat-cnn-gru", "--train-mode",
+     "-1", "--bf16"],
+    ["--network", "tat-maze-lstm", "--no-remat"])
+CLI_NETS_FLAGS = ["--num-envs", "1024", "--reset-pool", "256",
+                  "--total-iters", "2", "--debug-nans"]
+
+#: the learning bar of tests/test_learning_smoke.py
+LEARN_ENV = "Track2D-BlockPartialRam-v0"
+LEARN_ITERS, LEARN_EPISODES, LEARN_STEPS = 150, 64, 100
 
 SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_sweep16": "active_tracking_rl_torch/csrc/flood_bfs.cu",
@@ -359,15 +416,17 @@ def check_reset_steps(torch, env_mod, ecfg, gen_cpu, rows, what):
 
 
 def check_train_step(torch, tconfig, env_mod, learner, dueling, env_id,
-                     train_mode, gen_cpu):
+                     train_mode, gen_cpu, network=None, optimizer="Adam"):
     """One 8-step train step at 16 envs (pool 8) on the card and the CPU,
     from the same reset draws, parameters and noise, at static train mode
-    `train_mode` (the step's mode too), with the id's default network.
-    Returns both losses and both pred_losses."""
+    `train_mode` (the step's mode too), with `network` (default: the id's
+    default network) and `optimizer`. Returns both losses and both
+    pred_losses."""
     ecfg = tconfig.parse_env_id(env_id)
     tcfg = tconfig.TrainConfig(env_id=env_id, num_envs=16, reset_pool=8,
-                               num_steps=8, train_mode=train_mode)
-    ncfg = tconfig.net_config_for(tcfg)
+                               num_steps=8, train_mode=train_mode,
+                               optimizer=optimizer)
+    ncfg = tconfig.net_config_for(tcfg, network)
     draws = env_mod.draw_reset(ecfg, 24, gen_cpu, "cpu")
     noise = learner.draw_step_noise(8, tcfg.num_envs, ecfg.num_actions,
                                     gen_cpu, "cpu")
@@ -446,6 +505,11 @@ def phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
                          (tconfig.preset(ADVAT_PRESET).env_id, -1)):
         losses[env_id] = check_train_step(
             torch, tconfig, env_mod, learner, dueling, env_id, mode, gen_cpu)
+    # the other networks and SharedRMSprop
+    for env_id, mode, network, optimizer in REFERENCE_NETS:
+        losses[f"{env_id} {network} {optimizer}"] = check_train_step(
+            torch, tconfig, env_mod, learner, dueling, env_id, mode, gen_cpu,
+            network, optimizer)
     ids = [i for i in tconfig.env_ids() if i.endswith("-v0")]
     configs = [(i, tconfig.parse_env_id(i)) for i in ids]
     configs.append(("Moore Track2D-BlockPartialRam-v0", dataclasses.replace(
@@ -692,6 +756,291 @@ def phase_sweep16_entry(torch, flood, mz, goals):
     return launches
 
 
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _log_lines(run_dir, *starts):
+    """The trainer's log lines (after the time stamp) that start with one of
+    `starts`."""
+    with open(pathlib.Path(run_dir) / "logger") as f:
+        lines = [line.rstrip("\n").split(" : ", 1)[-1] for line in f]
+    return [line for line in lines if line.startswith(starts)]
+
+
+def _assert_tensors_equal(torch, got, want, what):
+    """Nested dicts and lists of tensors and numbers, equal bit for bit."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            _assert_tensors_equal(torch, got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: length {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tensors_equal(torch, g, w, f"{what}/{i}")
+    elif torch.is_tensor(want):
+        if got.dtype != want.dtype or not torch.equal(got.to(want.device),
+                                                      want):
+            raise AssertionError(f"{what} differs")
+    elif got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+
+
+def phase_cli_train(torch, flood, train_cli, tmp):
+    """The trainer CLI at AD-VAT's defaults on the card; returns its session
+    and launches."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    s = train_cli.main(CLI_TRAIN_FLAGS + ["--log-dir", str(tmp)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(flood)
+    tcfg, ncfg = s.tcfg, s.ncfg
+    if (tcfg.env_id, tcfg.env_base, ncfg.name, tcfg.train_mode,
+            tcfg.remat) != ("Track2D-BlockPartialPZR-v0",
+                            "Track2D-BlockPartialNav-v0", "tat-maze-lstm", -1,
+                            True):
+        raise AssertionError(f"cli-train ran {tcfg} {ncfg}")
+    rows = _read_jsonl(pathlib.Path(s.run_dir) / "metrics.jsonl")
+    train_steps = [r["step"] for r in rows if "train/policy_loss_0" in r]
+    test = {r["step"]: r for r in rows if "test/success_rate" in r}
+    if train_steps != [1] or sorted(test) != [3, 6]:
+        raise AssertionError(f"cli-train logged train {train_steps}, test "
+                             f"{sorted(test)}")
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"cli-train logged non-finite scalars: {rows}")
+    files = sorted(p.name for p in pathlib.Path(s.run_dir).iterdir())
+    for name in ("train_state.pt", "ckpt_meta.json", "all-best-3.msgpack",
+                 "tracker-best.msgpack", "target-best.msgpack"):
+        if name not in files:
+            raise AssertionError(f"cli-train wrote no {name}: {files}")
+    with open(pathlib.Path(s.run_dir) / "ckpt_meta.json") as f:
+        meta = json.load(f)
+    if meta["n_iter"] != 6:
+        raise AssertionError(f"cli-train's ckpt_meta.json: {meta}")
+    if launches["flood_sweep"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"cli-train launched {launches} (want "
+                             f"flood_sweep once per eval reset)")
+    for line in _log_lines(s.run_dir, "iter ", "eval "):
+        say("cli-train", t0, line)
+    say("cli-train", t0, f"6 iterations at {tcfg.num_envs} envs and 2 evals "
+        f"of {tcfg.test_eps} x 500 steps in {dt:.3f} s ("
+        f"{6 * tcfg.num_envs * tcfg.num_steps / dt:.1f} env-steps/s over the "
+        f"whole run); every iteration's metrics finite (--debug-nans); "
+        f"files {files}; launches {launches}")
+    return s, launches
+
+
+def phase_cli_resume(torch, flood, train_cli, checkpoint, first, tmp):
+    """--resume of cli-train's run: the loaded state is what was saved, bit
+    for bit, before it steps on to iteration 8."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    s = train_cli.setup(CLI_TRAIN_FLAGS + [
+        "--log-dir", str(tmp), "--run-name", "smoke-resume",
+        "--total-iters", "8", "--resume", first.run_dir])
+    saved = checkpoint.load_train_state(first.run_dir, map_location="cuda")
+    _assert_tensors_equal(torch, s.model.state_dict(), saved["model"],
+                          "model")
+    _assert_tensors_equal(torch, s.opt.state_dict(), saved["optimizer"],
+                          "optimizer")
+    _assert_tensors_equal(torch, train_cli.carry_state(s.carry),
+                          saved["carry"], "carry")
+    # ... which is the state the first run ended with
+    _assert_tensors_equal(torch, s.model.state_dict(),
+                          first.model.state_dict(), "model vs live")
+    _assert_tensors_equal(torch, s.opt.state_dict(), first.opt.state_dict(),
+                          "optimizer vs live")
+    _assert_tensors_equal(torch, train_cli.carry_state(s.carry),
+                          train_cli.carry_state(first.carry), "carry vs live")
+    if (s.start_iter, s.cur, s.ckpt.max_score) != (
+            6, first.cur, first.ckpt.max_score):
+        raise AssertionError(f"cli-resume starts after {s.start_iter} at "
+                             f"{s.cur}, watermark {s.ckpt.max_score}")
+    try:
+        s = train_cli.run(s)
+    finally:
+        train_cli.close_logger(s.log)
+    torch.cuda.synchronize()
+    launches = counts(flood)
+    with open(pathlib.Path(s.run_dir) / "ckpt_meta.json") as f:
+        meta = json.load(f)
+    if meta["n_iter"] != 8 or launches["flood_sweep"] != 1 \
+            or sum(launches.values()) != 1:
+        raise AssertionError(f"cli-resume: {meta}, launches {launches}")
+    for line in _log_lines(s.run_dir, "resumed", "eval "):
+        say("cli-resume", t0, line)
+    say("cli-resume", t0, f"params, optimizer state, carry and generator "
+        f"state loaded bit for bit; iterations 7-8 at mode {s.cur.mode}, "
+        f"watermark {first.ckpt.max_score:.3f}; launches {launches}")
+    return launches
+
+
+def phase_cli_eval(torch, flood, tconfig, env_mod, dueling, evaluate,
+                   checkpoint, eval_cli, eval_matrix, run_dir, tmp):
+    """run/eval.py and run/eval_matrix.py on cli-train's parameter files;
+    eval.py against rl/evaluate.py in this process."""
+    t0 = time.perf_counter()
+    env_id = "Track2D-BlockPartialNav-v0"
+    tracker = str(pathlib.Path(run_dir) / "tracker-best.msgpack")
+    target = str(pathlib.Path(run_dir) / "target-best.msgpack")
+    reset_counts(flood)
+    got = eval_cli.main(["--env", env_id, "--load-tracker", tracker,
+                         "--load-target", target, "--num-episodes",
+                         str(EVAL_EPISODES), "--log-dir", str(tmp)])
+    dt = time.perf_counter() - t0
+    ncfg = tconfig.NetConfig.from_name("tat-maze-lstm")
+    ecfg = tconfig.parse_env_id(env_id)
+    model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                device="cuda",
+                                generator=torch.Generator(device="cuda")
+                                .manual_seed(1))
+    checkpoint.load_params(model, None, tracker, target)
+    want = evaluate.evaluate(model, env_mod.TrackEnv(ecfg, "cuda"), ncfg,
+                             torch.Generator(device="cuda").manual_seed(1),
+                             EVAL_EPISODES)
+    if got["S_rate"] != want["S_rate"] or got["EL_mean"] != want["EL_mean"]:
+        raise AssertionError(f"eval.py S_rate {got['S_rate']} EL_mean "
+                             f"{got['EL_mean']} != rl/evaluate.py "
+                             f"{want['S_rate']} {want['EL_mean']}")
+    np.testing.assert_allclose(got["R_mean"], want["R_mean"], rtol=1e-5,
+                               atol=1e-5)
+    say("cli-eval", t0, f"run/eval.py, {EVAL_EPISODES} episodes on {env_id} "
+        f"in {dt:.3f} s: S_rate {float(got['S_rate']):.2f}, EL_mean "
+        f"{float(got['EL_mean']):.2f}, R_mean {got['R_mean'].tolist()} == "
+        f"rl/evaluate.py's (R_mean to 1e-5)")
+    t1 = time.perf_counter()
+    out = pathlib.Path(tmp) / "matrix.json"
+    matrix = eval_matrix.main(["--tracker", f"smoke={tracker}", "--env",
+                               env_id, "--num-episodes", str(EVAL_EPISODES),
+                               "--eval-seeds", "2", "--out", str(out)])
+    row = matrix[env_id]["smoke"]
+    if json.loads(out.read_text())[env_id]["smoke"]["S_ci95"] != \
+            row["S_ci95"] or row["episodes"] != 2 * EVAL_EPISODES:
+        raise AssertionError(f"eval_matrix wrote {row}")
+    launches = counts(flood)
+    if launches["flood_sweep"] != 4 or sum(launches.values()) != 4:
+        raise AssertionError(f"cli-eval launched {launches}")
+    say("cli-eval", t1, f"run/eval_matrix.py, 2 seeds x {EVAL_EPISODES} "
+        f"episodes: S_rate {row['S_rate']} (Wilson 95% {row['S_ci95']}), "
+        f"R_mean {row['R_mean']} +- {row['R_ci95']}; launches {launches}")
+    return launches
+
+
+def _grads_of_one_step(torch, learner, optim, s, remat, pool, noise, state):
+    """The gradients of one train step of session `s`'s model from `state`
+    (parameters) and its carry, with remat on or off."""
+    import copy
+    model = copy.deepcopy(s.model)
+    model.load_state_dict(state)
+    tcfg = dataclasses.replace(s.tcfg, remat=remat, lr=0.0)
+    opt = optim.make_optimizer_for(model, tcfg)
+    c = s.carry
+    carry = learner.TrainCarry(c.env_state.map(lambda x: x.clone()),
+                               c.obs_stack.clone(), c.hx.clone(),
+                               c.cx.clone(), None)
+    step = learner.make_train_step(model, s.env, s.ncfg, tcfg, opt)
+    _, m, _ = step(carry, s.tcfg.train_mode,
+                   (*pool, learner.init_pool_ptr(device="cuda")), noise)
+    return m, {n: p.grad.clone() for n, p in model.named_parameters()
+               if p.grad is not None}
+
+
+def phase_cli_nets(torch, flood, train_cli, learner, optim, tmp):
+    """The CLI with every other network family, RMSprop, bf16 and no remat;
+    then one step's gradients with and without remat from one state."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    for i, flags in enumerate(CLI_NETS):
+        t1 = time.perf_counter()
+        s = train_cli.main(flags + CLI_NETS_FLAGS + [
+            "--log-dir", str(tmp), "--run-name", f"nets{i}"])
+        torch.cuda.synchronize()
+        rows = _read_jsonl(pathlib.Path(s.run_dir) / "metrics.jsonl")
+        if not all(np.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"cli-nets {flags}: {rows}")
+        ev = _log_lines(s.run_dir, "eval ")
+        say("cli-nets", t1, f"{s.ncfg.name} (bf16 {s.ncfg.bf16}, remat "
+            f"{s.tcfg.remat}, {s.tcfg.optimizer}) on {s.tcfg.env_id}, train "
+            f"mode {s.tcfg.train_mode}: 2 iterations at {s.tcfg.num_envs} "
+            f"envs, losses finite (--debug-nans), loss at iteration 1 "
+            f"{float(s.last_metrics['loss']):.6f}; {ev[-1]}")
+    launches = counts(flood)
+
+    # the last run's (tat-maze-lstm, --no-remat) state
+    t2 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pool = learner.make_pool_fn(s.env, s.tcfg)(gen)
+    noise = learner.draw_step_noise(s.tcfg.num_steps, s.tcfg.num_envs,
+                                    s.env.num_actions, gen, "cuda")
+    state = {k: v.clone() for k, v in s.model.state_dict().items()}
+    m1, g1 = _grads_of_one_step(torch, learner, optim, s, True, pool, noise,
+                                state)
+    m0, g0 = _grads_of_one_step(torch, learner, optim, s, False, pool, noise,
+                                state)
+    if set(g1) != set(g0) or not g0:
+        raise AssertionError("remat and no-remat steps have other grads")
+    worst = 0.0
+    for name in g0:
+        scale = float(g0[name].abs().max().clamp_min(1e-30))
+        err = float((g1[name] - g0[name]).abs().max()) / scale
+        worst = max(worst, err)
+        if err > 1e-5:
+            raise AssertionError(f"remat grad {name} off by {err:.3g} "
+                                 f"relative")
+    say("cli-nets-remat", t2, f"one train step of {s.ncfg.name} at "
+        f"{s.tcfg.num_envs} envs from one state: loss remat "
+        f"{m1.loss.item():.6f} vs not {m0.loss.item():.6f}; grads agree to "
+        f"{worst:.3g} relative (bound 1e-5)")
+    say("cli-nets", t0, f"launches {launches}")
+    return launches
+
+
+def phase_learn(torch, flood, tconfig, env_mod, learner, dueling, evaluate):
+    """tests/test_learning_smoke.py's bar on the card: 150 iterations of the
+    Block-Ram tracker must lift the greedy eval return by > 30 and the
+    episode length by > 20."""
+    t0 = time.perf_counter()
+    # remat off, as that test runs it (the JAX TrainConfig's default)
+    tcfg = tconfig.TrainConfig(env_id=LEARN_ENV, env_base=LEARN_ENV,
+                               train_mode=0, num_envs=128, reset_pool=32,
+                               num_steps=20, lr=3e-3, remat=False)
+    ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
+    ecfg = dataclasses.replace(tconfig.parse_env_id(LEARN_ENV),
+                               max_episode_steps=LEARN_STEPS, tape_len=128)
+    env = env_mod.TrackEnv(ecfg, "cuda")
+    model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                device="cuda")
+    reset_counts(flood)
+    state = learner.init_learner(model, env, ncfg, tcfg,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    step = learner.make_train_step(model, env, ncfg, tcfg, state.opt)
+    ev = evaluate.make_evaluator(model, env, ncfg, LEARN_EPISODES, LEARN_STEPS)
+    before = ev(torch.Generator(device="cuda").manual_seed(42))
+    carry = state.carry
+    t1 = time.perf_counter()
+    for _ in range(LEARN_ITERS):
+        carry, m, _ = step(carry, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    after = ev(torch.Generator(device="cuda").manual_seed(42))
+    launches = counts(flood)
+    r0, r1 = float(before["R_mean"][0]), float(after["R_mean"][0])
+    l0, l1 = float(before["EL_mean"]), float(after["EL_mean"])
+    if not (np.isfinite(m.loss.item()) and r1 > r0 + 30 and l1 > l0 + 20):
+        raise AssertionError(f"learn: R0 {r0} -> {r1}, EL_mean {l0} -> {l1}")
+    say("learn", t0, f"{LEARN_ITERS} iterations of maze-lstm on {LEARN_ENV} "
+        f"({tcfg.num_envs} envs, {LEARN_STEPS}-step episodes) in {dt:.3f} s "
+        f"({LEARN_ITERS * tcfg.num_envs * tcfg.num_steps / dt:.1f} "
+        f"env-steps/s): R0 {r0:.2f} -> {r1:.2f} (bar +30), EL_mean {l0:.2f} "
+        f"-> {l1:.2f} (bar +20); launches {launches}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -712,7 +1061,11 @@ def main() -> int:
     from active_tracking_rl_torch.envs import maps
     from active_tracking_rl_torch.models import dueling
     from active_tracking_rl_torch.ops import flood
-    from active_tracking_rl_torch.rl import curriculum, evaluate, learner
+    from active_tracking_rl_torch.rl import (checkpoint, curriculum,
+                                             evaluate, learner, optim)
+    from active_tracking_rl_torch.run import eval as eval_cli
+    from active_tracking_rl_torch.run import eval_matrix
+    from active_tracking_rl_torch.run import train as train_cli
 
     phase_build(flood)
 
@@ -737,6 +1090,20 @@ def main() -> int:
         torch, flood, tconfig, env_mod, evaluate, model, ncfg, tcfg)
     paths["sweep16-entry"] = phase_sweep16_entry(torch, flood, pool_mz,
                                                  pool_goals)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        first, paths["cli-train"] = phase_cli_train(torch, flood, train_cli,
+                                                    tmp / "train")
+        paths["cli-resume"] = phase_cli_resume(torch, flood, train_cli,
+                                               checkpoint, first,
+                                               tmp / "train")
+        paths["cli-eval"] = phase_cli_eval(
+            torch, flood, tconfig, env_mod, dueling, evaluate, checkpoint,
+            eval_cli, eval_matrix, first.run_dir, tmp / "eval")
+        paths["cli-nets"] = phase_cli_nets(torch, flood, train_cli, learner,
+                                           optim, tmp / "nets")
+    paths["learn"] = phase_learn(torch, flood, tconfig, env_mod, learner,
+                                 dueling, evaluate)
     # each kernel's launches on the path that runs it
     for name, path in (("flood_sweep", "main"), ("flood_relax", "maze-main"),
                        ("flood_sweep16", "sweep16-entry")):

@@ -1,7 +1,7 @@
 """The port imports no JAX and nothing of the JAX package.
 
 In a fresh interpreter, an import hook refuses jax, jaxlib, flax, optax,
-chex and active_tracking_rl_tpu; then every module of
+chex, msgpack, tensorboardX and active_tracking_rl_tpu; then every module of
 active_tracking_rl_torch and chip_smoke.py are imported. The card's machine
 has none of those packages, so an import of one would fail there.
 """
@@ -18,7 +18,8 @@ import importlib.abc
 import pkgutil
 import sys
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "active_tracking_rl_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "chex", "msgpack", "tensorboardX",
+          "active_tracking_rl_tpu")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -51,5 +52,7 @@ def test_port_and_smoke_import_no_jax():
     out = res.stdout.split()
     assert int(out[0]) > 20
     for name in ("rl.curriculum", "rl.evaluate", "models.dueling",
-                 "ops.flood"):
+                 "ops.flood", "rl.checkpoint", "run.train", "run.eval",
+                 "run.eval_matrix", "utils.flax_msgpack", "utils.logging",
+                 "utils.stats"):
         assert f"active_tracking_rl_torch.{name}" in out, name

@@ -1,0 +1,115 @@
+"""One train step of the JAX package and of the port from the same params,
+carry, reset pool and sampling noise, for any discrete network, optimizer
+and frame stack: the harness of the learner parity tests.
+
+The port takes its sampling noise as tensors; ``step_noise`` re-derives it
+from the keys that the JAX step splits, so both sample the same actions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from active_tracking_rl_tpu.config import NetConfig as JNetConfig
+from active_tracking_rl_tpu.config import TrainConfig as JTrainConfig
+from active_tracking_rl_tpu.config import parse_env_id
+from active_tracking_rl_tpu.envs.env import TrackEnv as JaxEnv
+from active_tracking_rl_tpu.models.dueling import build_model as jbuild
+from active_tracking_rl_tpu.rl.learner import make_optimizer_for as j_opt_for
+from active_tracking_rl_tpu.rl.learner import make_train_step as j_train_step
+from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
+from active_tracking_rl_torch.config import NetConfig, TrainConfig
+from active_tracking_rl_torch.envs.env import TrackEnv
+from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.rl.learner import init_pool_ptr, make_train_step
+from active_tracking_rl_torch.rl.optim import make_optimizer_for
+from active_tracking_rl_torch.rl.rollout import TrainCarry
+from tests.torch_draws import (assert_state_equal, capture_grads, step_noise,
+                               torch_cfg, torch_state)
+
+#: reduced scripted-tape sizes (the floods and tapes stay exact)
+FAST = dict(nav_goal_candidates=4, flood_iters=96, tape_len=96)
+B, P, T = 8, 8, 8
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _host(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def run_pair(env_id: str, network: str, optimizer: str = "Adam",
+             stack: int = 1, train_mode: int = 0, aux: str = "reward"):
+    """Both packages' step from one state -> dict(jax=(params', grads,
+    carry', metrics, ptr'), torch=(state_dict', grads, carry', metrics,
+    ptr'))."""
+    ecfg = dataclasses.replace(parse_env_id(env_id), **FAST)
+    jenv = JaxEnv(ecfg)
+    jt = JTrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
+                      train_mode=train_mode, optimizer=optimizer)
+    jn = JNetConfig.from_name(network, stack_frames=stack, aux=aux)
+    jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
+    params = jm.init(jax.random.PRNGKey(0))
+    opt = capture_grads(j_opt_for(jn, jt, params))
+    reset = jax.jit(lambda k: jenv.reset_batch(k, B))
+    state, obs = reset(jax.random.PRNGKey(1))
+    pool_state, pool_obs = reset(jax.random.PRNGKey(2))
+    stack_obs = jnp.repeat(obs[:, :, None], stack, axis=2)
+    hx = jnp.zeros((B, 2, jn.rnn_out), jnp.float32)
+    carry = JCarry(state, stack_obs, hx, hx, jax.random.PRNGKey(3))
+    step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
+    p1, (_, grads), c1, m1, ptr1 = step(
+        params, opt.init(params), carry, jnp.int32(train_mode),
+        (pool_state, pool_obs, jnp.int32(0)))
+
+    tc = torch_cfg(ecfg)
+    env = TrackEnv(tc, "cpu")
+    tt = TrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
+                     train_mode=train_mode, optimizer=optimizer)
+    tn = NetConfig.from_name(network, stack_frames=stack, aux=aux)
+    model = build_model(tn, tc.num_actions, tc.obs_shape, device="cpu")
+    model.load_state_dict(params_from_flax(_host(params)))
+    topt = make_optimizer_for(model, tt)
+    tcarry = TrainCarry(torch_state(state),
+                        torch.from_numpy(np.array(stack_obs)),
+                        torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
+                        torch.Generator().manual_seed(0))
+    ts = make_train_step(model, env, tn, tt, topt)
+    tc1, tm1, tptr1 = ts(tcarry, train_mode,
+                         (torch_state(pool_state),
+                          torch.from_numpy(np.array(pool_obs)),
+                          init_pool_ptr(device="cpu")),
+                         step_noise(carry.key, T, B, tc.num_actions))
+    tgrads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+              for n, p in model.named_parameters()}
+    return dict(jax=(_host(p1), _host(grads), c1, m1, ptr1),
+                torch=(model.state_dict(), tgrads, tc1, tm1, tptr1))
+
+
+def assert_pair_close(res, param_tol) -> None:
+    """Integer paths bit for bit; loss, metrics and gradients to GRAD_TOL;
+    the updated parameters to `param_tol`."""
+    p1, grads, c1, m1, ptr1 = res["jax"]
+    tp1, tgrads, tc1, tm1, tptr1 = res["torch"]
+    assert_state_equal(tc1.env_state, c1.env_state)
+    np.testing.assert_array_equal(tc1.obs_stack.numpy(),
+                                  np.asarray(c1.obs_stack))
+    assert int(tptr1) == int(ptr1)
+    np.testing.assert_array_equal(tm1.ep_len.numpy(), np.asarray(m1.ep_len))
+    for name in ("loss", "policy_loss", "value_loss", "entropy", "ep_return",
+                 "pred_loss", "grad_norm"):
+        np.testing.assert_allclose(getattr(tm1, name).numpy(),
+                                   np.asarray(getattr(m1, name)), **GRAD_TOL,
+                                   err_msg=name)
+    want = params_from_flax(grads)
+    assert set(want) == set(tgrads)
+    for name, g in want.items():
+        np.testing.assert_allclose(tgrads[name].numpy(), g.numpy(),
+                                   **GRAD_TOL, err_msg=name)
+    for name, w in params_from_flax(p1).items():
+        np.testing.assert_allclose(tp1[name].numpy(), w.numpy(), **param_tol,
+                                   err_msg=name)
