@@ -1,8 +1,7 @@
 """Typed configuration: the port's own copy of the JAX package's config.
 
 Same env-id grammar (72 ids), same field names and defaults as
-``active_tracking_rl_tpu/config.py``, except ``TrainConfig.remat``, which
-defaults to on here (see its comment). ``flood_backend`` keeps the JAX names; each picks a flood
+``active_tracking_rl_tpu/config.py``. ``flood_backend`` keeps the JAX names; each picks a flood
 implementation, and the tensor's device picks the kernel or its plain twin
 (``envs/distance.py:distance_fields_backend``).
 """
@@ -174,10 +173,10 @@ class TrainConfig:
     #: rematerialize each rollout step's model forward: the backward pass
     #: recomputes it from the uint8 frame stack, h, c and the step's noise
     #: instead of keeping its activations. A pure recomputation with
-    #: bit-identical gradients. On by default, as the JAX trainer CLI and
-    #: bench run it (`--no-remat` turns it off); the JAX dataclass's own
-    #: default is False (active_tracking_rl_tpu/config.py:228).
-    remat: bool = True
+    #: bit-identical gradients. Off by default, as in the JAX dataclass;
+    #: the trainer CLI turns it on (`--no-remat` turns it off), as the JAX
+    #: CLI does.
+    remat: bool = False
 
 
 #: the JAX package's presets (the reference README's runs), field for field.

@@ -7,8 +7,14 @@ policy heads. TATPlayer, the tracker-aware target, sees the tracker's and
 its own observation joined on the stack axis, adds a linear embedding of
 the tracker's one-hot action to the features before the cell, and predicts
 the tracker's reward with an aux head. ``step_both`` samples the tracker,
-then the target, by their noise (train) or greedily (test). Continuous
-heads and single-player models wait (ROADMAP §1 items 6 and 7).
+then the target, by their noise (train) or greedily (test).
+
+Continuous networks (``NetConfig.continuous``, the ``-continuous`` names)
+have two policy heads: mu = softsign(policy(x)) and sigma_raw = sigma(x);
+a continuous TAT target's ``fc_action_tracker`` takes the tracker's clamped
+A-dim action itself, not a one-hot. A single-player model
+(``DuelingModel(single=True)``, for host envs with one agent) has no
+``player1``.
 
 With ``NetConfig.bf16`` the encoder's convs and fc and the cell's matmuls
 take bfloat16 inputs; parameters, heads and the recurrent state stay
@@ -26,11 +32,14 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.models.encoders import FLAX_NAMES, make_encoder
-from active_tracking_rl_torch.models.heads import ActionSample, sample_discrete
+from active_tracking_rl_torch.models.heads import (ActionSample,
+                                                   sample_continuous,
+                                                   sample_discrete)
 from active_tracking_rl_torch.models.init import init_linear_
 from active_tracking_rl_torch.models.recurrent import GRUCell, LSTMCell
 
@@ -40,22 +49,20 @@ CELLS = {"lstm": LSTMCell, "gru": GRUCell}
 
 class PlayerOut(NamedTuple):
     value: torch.Tensor             # (B, 1)
-    logits: torch.Tensor            # (B, A)
+    logits: torch.Tensor            # (B, A) discrete; mu for continuous
     h: torch.Tensor                 # (B, R)
     c: torch.Tensor                 # (B, R)
     r_pred: Optional[torch.Tensor] = None   # (B, 1), TATPlayer only
+    sigma: Optional[torch.Tensor] = None    # (B, A) sigma_raw, continuous only
 
 
 class A3CPlayer(nn.Module):
-    """Encoder -> LSTM or GRU cell (or none) -> value and policy heads."""
+    """Encoder -> LSTM or GRU cell (or none) -> value and policy heads (and
+    the sigma head of a continuous network)."""
 
     def __init__(self, cfg: NetConfig, num_actions: int,
                  obs_hw: Tuple[int, int], stack_frames: Optional[int] = None):
         super().__init__()
-        if cfg.continuous:
-            raise NotImplementedError(
-                f"network {cfg.name!r}: continuous heads are not ported yet "
-                f"(ROADMAP §1 item 6)")
         self.encoder = make_encoder(cfg.encoder, obs_hw,
                                     stack_frames or cfg.stack_frames, cfg.bf16)
         self.rnn = cfg.rnn
@@ -66,6 +73,8 @@ class A3CPlayer(nn.Module):
             head_in = cfg.rnn_out
         self.value = nn.Linear(head_in, 1)
         self.policy = nn.Linear(head_in, num_actions)
+        self.sigma = (nn.Linear(head_in, num_actions) if cfg.continuous
+                      else None)
 
     @property
     def cell(self) -> Optional[nn.Module]:
@@ -77,6 +86,8 @@ class A3CPlayer(nn.Module):
             self.cell.reset_parameters(generator)
         init_linear_(self.value, generator)
         init_linear_(self.policy, generator)
+        if self.sigma is not None:
+            init_linear_(self.sigma, generator)
 
     def core(self, feat: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
         """The cell on the features -> (head input, h', c'); without a cell
@@ -86,16 +97,26 @@ class A3CPlayer(nn.Module):
         h, c = self.cell(feat, h, c)
         return h, h, c
 
+    def heads(self, feat: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              r_pred: Optional[torch.Tensor] = None) -> PlayerOut:
+        """Value and policy (softsign mu and sigma_raw if continuous)."""
+        if self.sigma is None:
+            return PlayerOut(self.value(feat), self.policy(feat), h, c,
+                             r_pred)
+        return PlayerOut(self.value(feat), F.softsign(self.policy(feat)), h,
+                         c, r_pred, self.sigma(feat))
+
     def forward(self, obs: torch.Tensor, h: torch.Tensor,
                 c: torch.Tensor) -> PlayerOut:
         feat, h, c = self.core(self.encoder(obs), h, c)
-        return PlayerOut(self.value(feat), self.policy(feat), h, c)
+        return self.heads(feat, h, c)
 
 
 class TATPlayer(A3CPlayer):
     """The tracker-aware target: the encoder over 2k frames (the tracker's
-    k, then its own), plus fc_action_tracker(one-hot tracker action), ->
-    the cell -> value, policy and reward_aux heads."""
+    k, then its own), plus fc_action_tracker(tracker action: one-hot, or
+    the clamped continuous action), -> the cell -> value, policy and
+    reward_aux heads."""
 
     def __init__(self, cfg: NetConfig, num_actions: int,
                  obs_hw: Tuple[int, int]):
@@ -112,73 +133,96 @@ class TATPlayer(A3CPlayer):
                 action_tracker: torch.Tensor) -> PlayerOut:
         feat = self.encoder(obs) + self.fc_action_tracker(action_tracker)
         feat, h, c = self.core(feat, h, c)
-        return PlayerOut(self.value(feat), self.policy(feat), h, c,
-                         self.reward_aux(feat))
+        return self.heads(feat, h, c, self.reward_aux(feat))
 
 
 class DuelingModel(nn.Module):
-    """player0 (tracker) and player1 (target) in one module."""
+    """player0 (tracker) and player1 (target) in one module; a single-player
+    model has player1 None."""
 
     def __init__(self, net_cfg: NetConfig, num_actions: int,
-                 obs_hw: Tuple[int, int]):
+                 obs_hw: Tuple[int, int], single: bool = False):
         super().__init__()
         self.cfg = net_cfg
         self.num_actions = num_actions
         self.player0 = A3CPlayer(net_cfg, num_actions, obs_hw)
-        self.player1 = (TATPlayer if net_cfg.tat else A3CPlayer)(
-            net_cfg, num_actions, obs_hw)
+        self.player1 = None if single else (
+            TATPlayer if net_cfg.tat else A3CPlayer)(net_cfg, num_actions,
+                                                     obs_hw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.player0.reset_parameters(generator)
-        self.player1.reset_parameters(generator)
+        if self.player1 is not None:
+            self.player1.reset_parameters(generator)
 
     def tracker_fwd(self, obs0, h0, c0) -> PlayerOut:
         return self.player0(obs0, h0, c0)
 
     def target_fwd(self, obs0, obs1, h1, c1, tracker_action) -> PlayerOut:
         """A TAT target sees both observations, joined on the stack axis,
-        and the tracker's action one-hot; a plain one only its own
-        observation."""
+        and the tracker's action: one-hot (discrete, (B,) int) or as it is
+        (continuous, (B, A) float, clamped by the caller); a plain target
+        only its own observation."""
         if self.cfg.tat:
-            a2t = torch.nn.functional.one_hot(
-                tracker_action.long(), self.num_actions).to(obs1.dtype)
+            if self.cfg.continuous:
+                a2t = tracker_action
+            else:
+                a2t = F.one_hot(tracker_action.long(),
+                                self.num_actions).to(obs1.dtype)
             return self.player1(torch.cat([obs0, obs1], dim=1), h1, c1, a2t)
         return self.player1(obs1, h1, c1)
 
-    def sample(self, out: PlayerOut, gumbel: Optional[torch.Tensor],
+    def sample(self, out: PlayerOut, noise: Optional[torch.Tensor],
                test: bool = False) -> ActionSample:
-        return sample_discrete(out.logits, gumbel, test)
+        """`noise` (B, A): Gumbel (discrete) or standard normal
+        (continuous)."""
+        if self.cfg.continuous:
+            return sample_continuous(out.logits, out.sigma, noise, test)
+        return sample_discrete(out.logits, noise, test)
 
     def step_both(self, obs: torch.Tensor, hx: torch.Tensor, cx: torch.Tensor,
-                  gumbel: Optional[torch.Tensor], test: bool = False):
+                  noise: Optional[torch.Tensor], test: bool = False):
         """Joint forward: the tracker acts, then the target.
 
-        obs (B, 2, k, H, W, 1) float; hx, cx (B, 2, R); gumbel (B, 2, A) the
-        sampling noise of each player (train), unread and may be None when
-        `test` picks each player's most probable action. Returns (values
-        (B,2), actions (B,2), entropies (B,2), log_probs (B,2), hx', cx',
-        r_pred (B,1) of a TAT target or None).
+        obs (B, P, k, H, W, 1) float; hx, cx (B, P, R), P = 2 (P = 1 for a
+        single-player model); noise (B, P, A) each player's sampling noise
+        (Gumbel, or standard normal for continuous heads), unread and may be
+        None when `test` picks each discrete player's most probable action.
+        Returns (values (B,P), actions, entropies (B,P), log_probs (B,P),
+        hx', cx', r_pred (B,1) of a TAT target or None). Discrete actions
+        are (B, P) int64; continuous ones the raw samples (B, P, A), whose
+        entropy and log-probability are meaned over the action dims.
         """
-        g0, g1 = (None, None) if gumbel is None else gumbel.unbind(1)
+        n0, n1 = (None, None) if noise is None else (noise[:, 0],
+                                                     noise[:, -1])
         out0 = self.tracker_fwd(obs[:, 0], hx[:, 0], cx[:, 0])
-        s0 = self.sample(out0, g0, test)
-        out1 = self.target_fwd(obs[:, 0], obs[:, 1], hx[:, 1], cx[:, 1],
-                               s0.action)
-        s1 = self.sample(out1, g1, test)
-        return (torch.cat([out0.value, out1.value], dim=-1),
-                torch.stack([s0.action, s1.action], dim=-1),
-                torch.cat([s0.entropy, s1.entropy], dim=-1),
-                torch.cat([s0.log_prob, s1.log_prob], dim=-1),
-                torch.stack([out0.h, out1.h], dim=1),
-                torch.stack([out0.c, out1.c], dim=1),
-                out1.r_pred)
+        s0 = self.sample(out0, n0, test)
+        samples, outs = [s0], [out0]
+        if self.player1 is not None:
+            out1 = self.target_fwd(obs[:, 0], obs[:, 1], hx[:, 1], cx[:, 1],
+                                   s0.action)
+            samples.append(self.sample(out1, n1, test))
+            outs.append(out1)
+        cont = self.cfg.continuous
+
+        def stat(x):
+            return x.mean(-1, keepdim=True) if cont else x
+
+        actions = [s.raw_action if cont else s.action for s in samples]
+        return (torch.cat([o.value for o in outs], dim=-1),
+                torch.stack(actions, dim=1),
+                torch.cat([stat(s.entropy) for s in samples], dim=-1),
+                torch.cat([stat(s.log_prob) for s in samples], dim=-1),
+                torch.stack([o.h for o in outs], dim=1),
+                torch.stack([o.c for o in outs], dim=1),
+                outs[1].r_pred if len(outs) == 2 else None)
 
 
 def build_model(net_cfg: NetConfig, num_actions: int, obs_hw: Tuple[int, int],
-                device="cuda",
-                generator: Optional[torch.Generator] = None) -> DuelingModel:
+                device="cuda", generator: Optional[torch.Generator] = None,
+                single: bool = False) -> DuelingModel:
     """The model on `device`, initialized from `generator` when one is given."""
-    model = DuelingModel(net_cfg, num_actions, obs_hw).to(device)
+    model = DuelingModel(net_cfg, num_actions, obs_hw, single).to(device)
     if generator is not None:
         model.reset_parameters(generator)
     return model
@@ -187,6 +231,7 @@ def build_model(net_cfg: NetConfig, num_actions: int, obs_hw: Tuple[int, int],
 # flax module names of a player's layers, other than the encoder's
 _FLAX_DENSE = {("ValueNet_0", "Dense_0"): "value",
                ("PolicyNet_0", "Dense_0"): "policy",
+               ("PolicyNet_0", "Dense_1"): "sigma",
                ("fc_action_tracker",): "fc_action_tracker",
                ("reward_aux",): "reward_aux"}
 _FLAX_CELLS = {"LSTMCell_0": "lstm", "GRUCell_0": "gru"}

@@ -40,8 +40,12 @@ class _Cell(nn.Module):
         self.weight_hh = nn.Parameter(torch.empty(g, hidden))
         self.bias_ih = nn.Parameter(torch.zeros(g))
         self.bias_hh = nn.Parameter(torch.zeros(g))
+        # drawn now from torch's global generator, as nn.LSTMCell's are, so
+        # that a model built without a generator holds no uninitialized
+        # memory
+        self.reset_parameters(None)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def reset_parameters(self, generator) -> None:
         torch_rnn_uniform_(self.weight_ih, self.hidden, generator)
         torch_rnn_uniform_(self.weight_hh, self.hidden, generator)
         nn.init.zeros_(self.bias_ih)

@@ -74,8 +74,14 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
     `init_pool_ptr`; thread the returned pointer back in while the pool is
     reused. None generates a fresh pool inside the step (pool refresh 1).
     `noise` is the step's sampling noise; None draws it from the carry's
-    generator.
+    generator. Track2D's actions are discrete: a continuous network trains
+    on host envs with Box actions (``rl/host_loop.py``).
     """
+    if net_cfg.continuous:
+        raise ValueError(f"network {net_cfg.name!r}: the Track2D learner "
+                         f"takes discrete actions; continuous heads train "
+                         f"through rl/host_loop.py (run/train_host.py)")
+
     def train_step(carry: TrainCarry, mode: int,
                    pool: Optional[Tuple[EnvState, torch.Tensor,
                                         torch.Tensor]] = None,

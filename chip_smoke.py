@@ -5,6 +5,11 @@ Run from the root of the repository, with no install step:
 
     python3 chip_smoke.py
 
+With `--tat-seeds 0-7` it runs only the TAT-continuous bar of phase 17,
+for each seed on the card and on the CPU (`--tat-devices`; `--tat-control`
+adds each seed at train mode 0, where the aux head does not learn), each
+run in a spawned process, and prints every run and each device's summary.
+
 Phases (each prints one line with its seconds):
   1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`;
   2. build: compiles csrc/flood_bfs.cu, the one kernel source (its launchers
@@ -19,9 +24,12 @@ Phases (each prints one line with its seconds):
      the relaxation's whole 16-sweep chunks); then the caps: iters 0, 1, 15,
      16, 17, 255 and 256 on the perfect mazes, whose paths are far longer
      than 256, on Block and Empty maps at S=82, at S=24 and at S=128, the
-     kernel's largest side; flood_sweep16 must also equal flood_sweep;
-     prints each launcher's, its twin's and its bound's time, and the depth
-     of the timed fields with the levels that their output implies;
+     kernel's largest side; then the host trainer's shape, one row (a
+     GymTrackEnv reset): 4 Block and 4 Empty maps at S=82, each alone with
+     16 goals and with 4 goals holding (-1,-1) pads, at iters 256 and 20;
+     flood_sweep16 must also equal flood_sweep; prints each launcher's, its
+     twin's and its bound's time on a 512-row pool and on one row, and the
+     depth of the timed fields with the levels that their output implies;
   4. reference: the port on the card against the port on the CPU (where the
      floods are the plain twins): reset and 3 steps bit for bit (float state
      to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
@@ -31,10 +39,17 @@ Phases (each prints one line with its seconds):
      (loss and pred_loss), and one each of maze-gru with SharedRMSprop,
      icml-lstm on Full obs and tat-cnn-lstm on Full obs; and the greedy
      evaluator on the AD-VAT eval env, 8 episodes of 60 steps, episode
-     lengths equal and returns to 1e-5;
+     lengths equal and returns to 1e-5; then [reference-host]: GymTrackEnv
+     on Track2D-BlockPartialNav-v0 and Track2D-BlockPartialPZR-v0, reset and
+     20 fixed-action steps from the same draws (obs and done equal, integer
+     state bit for bit, floats to 1e-6), and one make_host_update of
+     maze-lstm-continuous single and of tat-maze-lstm-continuous with the
+     aux reward at mode -1 (loss, grad norm and pred_loss to 1e-4
+     relative);
   5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
      maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
-     refreshed every iteration, 20 steps: init_learner, one untimed warm-up
+     refreshed every iteration, 20 steps, remat off (TrainConfig's default;
+     maze-main and advat too): init_learner, one untimed warm-up
      step, then 3 timed train steps; the loss must be finite, flood_sweep
      must have been launched in the timed steps and flood_relax and
      flood_sweep16 must not; prints their (warm)
@@ -79,14 +94,40 @@ Phases (each prints one line with its seconds):
      maze-gru + RMSprop, icml-lstm on Full obs, tat-cnn-gru on Full obs
      with --bf16, and tat-maze-lstm with --no-remat; then one train step's
      gradients with and without remat from one state, to 1e-5 relative;
- 14. learn: tests/test_learning_smoke.py's bar through the library:
-     maze-lstm on Block-Ram (remat off, as there), 150 iterations at 128
-     envs must lift the greedy return by more than 30 and the episode
-     length by more than 20.
+ 14. host-train: the host-env trainer CLI, `run/train_host.py:main`, with
+     --device cuda on Track2D-BlockPartialNav-v0 through the gym bridge,
+     maze-lstm at full width, 16 envs x 20 steps, 2 iterations, one
+     checkpoint: the loss finite, the all-, tracker- and target- parameter
+     files written, flood_sweep launched exactly once per env reset (the
+     pool counts its resets) and no other kernel; prints env-steps/s, the
+     seconds, the resets and the launches;
+ 15. learn: tests/test_learning_smoke.py's bar through the library:
+     maze-lstm on Block-Ram (remat off, as there), 125 iterations (the
+     test's 150, cut) at 128 envs must lift the greedy return by more
+     than 30 and the episode length by more than 20;
+ 16. host-single: a single-player discrete maze-lstm HostTrainer on a toy
+     single-agent env (tests/test_host_loop.py's): every episode, of
+     length 10, is recorded;
+ 17. learn-continuous and learn-tat-continuous: the bars of the JAX slow
+     tests on the card, on this script's numpy copies of their direction
+     pools (32 envs x 8 steps): maze-lstm-continuous single, 120
+     iterations, late return > early + 2 and > 4 (tests/test_continuous.py);
+     tat-maze-lstm-continuous with the aux reward at mode -1, 150
+     iterations at tests/test_continuous_tat.py's seed 0, its bar as
+     written: late > early + 2, and the mean pred_loss of the last 20
+     iterations < 0.8 x that of the first 20; the same seed on the CPU, in
+     a spawned process that overlaps phases 13 to 17 (the host trainer
+     draws its parameters and noise on the host, so a seed is one run on
+     either device), meets it too, and the card's ratio is the CPU's to
+     0.05;
+ 18. random-agent: `run/random_agent.py:main` on Track2D-BlockPartialNav-v0,
+     FPS mode at 4096 envs for 3 s (its reset must launch flood_sweep, and
+     no other kernel), then --episodes 1 without --gif (one launch).
 Then one JSON line with the kernel table (each row also carries the levels
-its timed output implies and its launches on every path), the card's line
-from nvidia-smi, and the last line {"ok": true, "device": {...}}. Any
-failure raises and the script exits non-zero without the last line.
+its timed output implies, its times at one row, `host_shape`, and its
+launches on every path), the card's line from nvidia-smi, and the last line
+{"ok": true, "device": {...}}. Any failure raises and the script exits
+non-zero without the last line.
 """
 
 from __future__ import annotations
@@ -142,9 +183,26 @@ CLI_NETS = (
 CLI_NETS_FLAGS = ["--num-envs", "1024", "--reset-pool", "256",
                   "--total-iters", "2", "--debug-nans"]
 
-#: the learning bar of tests/test_learning_smoke.py
+#: the learning bar of tests/test_learning_smoke.py, its 150 iterations cut
+#: to 125 to hold the smoke's time
 LEARN_ENV = "Track2D-BlockPartialRam-v0"
-LEARN_ITERS, LEARN_EPISODES, LEARN_STEPS = 150, 64, 100
+LEARN_ITERS, LEARN_EPISODES, LEARN_STEPS = 125, 64, 100
+
+#: the host-env trainer CLI on the card: Nav through the gym bridge, cut to
+#: 2 iterations (each ~18 one-row resets of ~0.3 s)
+HOST_TRAIN_ITERS = 2
+HOST_TRAIN_FLAGS = ["--env", "Track2D-BlockPartialNav-v0", "--network",
+                    "maze-lstm", "--num-envs", "16", "--num-steps", "20",
+                    "--total-iters", str(HOST_TRAIN_ITERS),
+                    "--checkpoint-every", str(HOST_TRAIN_ITERS)]
+#: the continuous learning bars of tests/test_continuous.py and
+#: tests/test_continuous_tat.py: iterations at 32 envs x 8 steps
+LEARN_CONT_ITERS, LEARN_TAT_CONT_ITERS = 120, 150
+#: the trainer seed of the TAT bar, tests/test_continuous_tat.py's, and
+#: how far the card's pred_loss ratio may sit from the CPU's at that seed
+LEARN_TAT_SEED, LEARN_TAT_RATIO_GAP = 0, 0.05
+#: the random agent's FPS mode
+RANDOM_AGENT_ENVS, RANDOM_AGENT_SECONDS = 4096, 3
 
 SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_sweep16": "active_tracking_rl_torch/csrc/flood_bfs.cu",
@@ -332,6 +390,23 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
         f"S=24 (and iters 20) and at S=128: every launcher == its twin bit "
         f"for bit; flood_sweep16 == flood_sweep")
 
+    # the host trainer's shape: a GymTrackEnv reset on a Nav id floods one
+    # row's goal fields (16 goals; 4 with two (-1,-1) pads)
+    t2 = time.perf_counter()
+    host_cases = 0
+    for env_id in ("Track2D-BlockPartialNav-v0", "Track2D-EmptyPartialNav-v0"):
+        mz = pool_maps(env_id, 4)
+        goals16 = free_goals(mz, 16)
+        for i in range(mz.shape[0]):
+            for goals in (goals16[i:i + 1], padded(goals16[i:i + 1], 4)):
+                for iters in (256, 20):
+                    check(mz[i:i + 1], goals, iters)
+                    host_cases += 1
+    say("kernel-host", t2, f"{host_cases} cases of 1 row at S=82 (4 Block "
+        f"and 4 Empty maps, 16 goals and 4 with (-1,-1) pads, iters 256 "
+        f"and 20): every launcher == its twin bit for bit; flood_sweep16 "
+        f"== flood_sweep")
+
     # times on the main paths' data (level-0 maps of the path's family, 16
     # free goals, iters 256), each output held against its twin once more
     rows = {}
@@ -374,6 +449,27 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 implied_levels_mean=stats["implied_levels_mean"],
                 implied_levels_max=stats["implied_levels_max"])
+    # times at the host trainer's shape: one row, 16 goals
+    for name, env_id in (("flood_sweep", BENCH_ENV),
+                         ("flood_sweep16", BENCH_ENV),
+                         ("flood_relax", MAZE_ENV)):
+        variant = {"flood_sweep": "sweep", "flood_sweep16": "sweep16",
+                   "flood_relax": "relax"}[name]
+        kernel, plain = flood.KERNELS[variant], flood.PLAIN[variant]
+        mz, goals = (x[:1] for x in inputs[env_id])
+        kernel_ms = cuda_ms(lambda: kernel(mz, goals, iters), 200)
+        plain_ms = cuda_ms(lambda: plain(mz, goals, iters), 3)
+        out = kernel(mz, goals, iters)
+        if not torch.equal(out, plain(mz, goals, iters)):
+            raise AssertionError(f"{name} != twin at one row of {env_id}")
+        bound_ms, bound_by = bound(mz, goals, out, flood.INF)
+        shape = f"1x{goals.shape[1]}x{mz.shape[-1]}^2"
+        rows[name]["host_shape"] = dict(
+            shape=shape, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+        say("kernel-time-host", t0, f"{name} at {shape} iters {iters} "
+            f"({env_id}): kernel {kernel_ms:.4f} ms, twin {plain_ms:.3f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
     for row in rows.values():  # every case of this phase counts
         row["max_abs_err"] = errs[row["name"]]
     return rows, inputs[BENCH_ENV]
@@ -1001,14 +1097,14 @@ def phase_cli_nets(torch, flood, train_cli, learner, optim, tmp):
 
 
 def phase_learn(torch, flood, tconfig, env_mod, learner, dueling, evaluate):
-    """tests/test_learning_smoke.py's bar on the card: 150 iterations of the
-    Block-Ram tracker must lift the greedy eval return by > 30 and the
-    episode length by > 20."""
+    """tests/test_learning_smoke.py's bar on the card: LEARN_ITERS
+    iterations of the Block-Ram tracker must lift the greedy eval return by
+    > 30 and the episode length by > 20."""
     t0 = time.perf_counter()
-    # remat off, as that test runs it (the JAX TrainConfig's default)
+    # remat off (TrainConfig's default), as that test runs it
     tcfg = tconfig.TrainConfig(env_id=LEARN_ENV, env_base=LEARN_ENV,
                                train_mode=0, num_envs=128, reset_pool=32,
-                               num_steps=20, lr=3e-3, remat=False)
+                               num_steps=20, lr=3e-3)
     ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
     ecfg = dataclasses.replace(tconfig.parse_env_id(LEARN_ENV),
                                max_episode_steps=LEARN_STEPS, tape_len=128)
@@ -1041,12 +1137,477 @@ def phase_learn(torch, flood, tconfig, env_mod, learner, dueling, evaluate):
     return launches
 
 
-def main() -> int:
-    t_start = time.perf_counter()
+# --- the host-env trainer's paths ------------------------------------------
+
+
+class ToyImageEnv:
+    """A single-agent env (tests/test_host_loop.py's): random (1, 1, 1, 13,
+    13) obs, reward 1 for action 0, episodes of 10 steps."""
+
+    def __init__(self, seed):
+        self.rng = np.random.RandomState(seed)
+        self.t = 0
+
+    def _obs(self):
+        return self.rng.rand(1, 1, 1, 13, 13).astype(np.float32)
+
+    def reset(self):
+        self.t = 0
+        return self._obs()
+
+    def step(self, action):
+        self.t += 1
+        r = np.array([1.0 if int(np.asarray(action).ravel()[0]) == 0
+                      else 0.0], np.float32)
+        return self._obs(), r, self.t >= 10, {}
+
+
+class DirectionPool:
+    """The continuous-action pool of tests/test_continuous.py (a numpy
+    copy): a 13 x 13 one-hot image marks a per-episode unit direction d;
+    actions are 2-d in the box [-2, 2]; the tracker's reward is
+    (a . d) / 2 per step (with `players` 2 the target's is its negative);
+    episodes last 16 steps."""
+
+    EP_LEN = 16
+
+    def __init__(self, batch: int, seed: int = 0, players: int = 1):
+        self.B, self.players = batch, players
+        self.rng = np.random.default_rng(seed)
+        self.t = np.zeros(batch, np.int64)
+        self.dir = np.zeros((batch, 2), np.float32)
+
+    def __len__(self):
+        return self.B
+
+    def _redraw(self, rows):
+        ang = self.rng.uniform(0, 2 * np.pi, size=rows.sum())
+        self.dir[rows] = np.stack([np.cos(ang), np.sin(ang)], -1)
+        self.t[rows] = 0
+
+    def _obs(self):
+        img = np.zeros((self.B, self.players, 1, 13, 13), np.float32)
+        px = 6 + np.round(4 * self.dir).astype(int)
+        img[np.arange(self.B), :, 0, px[:, 0], px[:, 1]] = 1.0
+        return img
+
+    def reset(self):
+        self._redraw(np.ones(self.B, bool))
+        return self._obs()
+
+    def step(self, actions):
+        a = np.asarray(actions, np.float32)
+        if self.players == 1:
+            a = a.reshape(self.B, 1, 2)
+        if np.abs(a).max() > 2.0 + 1e-5:
+            raise AssertionError("actions outside the env's box")
+        r0 = (a[:, 0] * self.dir).sum(-1) / 2.0
+        self.t += 1
+        done = self.t >= self.EP_LEN
+        if done.any():
+            self._redraw(done)
+        r = r0[:, None] if self.players == 1 else np.stack([r0, -r0], -1)
+        return self._obs(), r, done, {}
+
+
+def check_gym_env(torch, bridge, env_mod, tconfig, env_id, gen_cpu,
+                  steps=20):
+    """GymTrackEnv on the card and on the CPU from the same reset draws and
+    `steps` fixed actions: obs and done equal, rewards to 1e-6, the state's
+    integers bit for bit and its floats to 1e-6."""
+    ecfg = tconfig.parse_env_id(env_id)
+    draws = env_mod.draw_reset(ecfg, 1, gen_cpu, "cpu")
+    actions = torch.randint(0, ecfg.num_actions, (steps, 2),
+                            generator=gen_cpu).numpy()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        env = bridge.GymTrackEnv(env_id, device=dev)
+        trace = [(env.reset(_to(draws, dev)), None, None,
+                  env._state.map(lambda x: x.cpu()))]
+        for a in actions:
+            obs, rew, done, _ = env.step(a)
+            trace.append((obs, rew, done, env._state.map(lambda x: x.cpu())))
+        out[dev] = trace
+    for i, (c, g) in enumerate(zip(out["cpu"], out["cuda"])):
+        if not (np.array_equal(c[0], g[0]) and c[2] == g[2]):
+            raise AssertionError(f"GymTrackEnv {env_id} step {i}: cuda != "
+                                 f"cpu")
+        if c[1] is not None:
+            np.testing.assert_allclose(g[1], c[1], rtol=1e-6, atol=1e-6)
+        _assert_state_close(torch, c[3], g[3], f"GymTrackEnv {env_id} {i}")
+
+
+def check_host_update(torch, tconfig, dueling, optim, host_loop, name, mode,
+                      gen_cpu, aux="none", single=False):
+    """One make_host_update of `name` on the card and the CPU from the same
+    parameters, batch and bootstrap noise: loss and grad norm to 1e-4
+    relative. Returns them (cuda, cpu)."""
+    t, b, a, p = 8, 16, 2, 1 if single else 2
+    ncfg = tconfig.NetConfig.from_name(name, aux=aux)
+    tcfg = tconfig.TrainConfig(num_envs=b, num_steps=t, train_mode=mode)
+    params = dueling.build_model(ncfg, a, (13, 13), device="cpu",
+                                 generator=gen_cpu, single=single).state_dict()
+    g = gen_cpu
+    batch = host_loop.HostBatch(
+        obs=torch.randint(0, 5, (t + 1, b, p, 1, 13, 13, 1),
+                          generator=g).float(),
+        actions=1.5 * torch.randn((t, b, p, a), generator=g),
+        rewards=torch.randn((t, b, 2), generator=g),
+        done=torch.rand((t, b), generator=g) < 0.1,
+        hx0=0.3 * torch.randn((b, p, 128), generator=g),
+        cx0=0.3 * torch.randn((b, p, 128), generator=g))
+    boot = torch.randn((b, a), generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = dueling.build_model(ncfg, a, (13, 13), device=dev,
+                                    single=single)
+        model.load_state_dict(params)
+        opt = optim.make_optimizer_for(model, tcfg)
+        update = host_loop.make_host_update(model, ncfg, tcfg, opt,
+                                            not single)
+        m = update(host_loop.HostBatch(*(x.to(dev) for x in batch)), mode,
+                   boot.to(dev))
+        res[dev] = (m.loss.item(), m.grad_norm.item(), m.pred_loss.item())
+    for i, what in enumerate(("loss", "grad_norm", "pred_loss")):
+        c, gd = res["cpu"][i], res["cuda"][i]
+        if not (np.isfinite(gd) and abs(c - gd) <= 1e-4 * max(1.0, abs(c))):
+            raise AssertionError(f"host update {name} {what}: cuda {gd} != "
+                                 f"cpu {c}")
+    return res["cuda"], res["cpu"]
+
+
+def phase_reference_host(torch, tconfig, env_mod, bridge, dueling, optim,
+                         host_loop, gen_cpu):
+    """The host trainer's parts on the card against the CPU."""
+    t0 = time.perf_counter()
+    for env_id in (BENCH_ENV, "Track2D-BlockPartialPZR-v0"):
+        check_gym_env(torch, bridge, env_mod, tconfig, env_id, gen_cpu)
+    single = check_host_update(torch, tconfig, dueling, optim, host_loop,
+                               "maze-lstm-continuous", -1, gen_cpu,
+                               single=True)
+    tat = check_host_update(torch, tconfig, dueling, optim, host_loop,
+                            "tat-maze-lstm-continuous", -1, gen_cpu,
+                            aux="reward")
+    say("reference-host", t0, f"GymTrackEnv on {BENCH_ENV} and "
+        f"Track2D-BlockPartialPZR-v0: reset + 20 steps cuda == cpu (floats "
+        f"to 1e-6); make_host_update (cuda vs cpu: loss, grad_norm, "
+        f"pred_loss): maze-lstm-continuous single {single[0]} vs "
+        f"{single[1]}; tat-maze-lstm-continuous aux, mode -1, {tat[0]} vs "
+        f"{tat[1]}")
+
+
+def phase_host_train(torch, flood, train_host, tmp):
+    """run/train_host.py on Nav through the gym bridge; returns launches."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    run = train_host.main(HOST_TRAIN_FLAGS + ["--device", "cuda",
+                                              "--log-dir", str(tmp)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts(flood)
+    resets = run.trainer.pool.resets
+    loss = float(run.last_metrics["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"host-train loss {loss}")
+    files = sorted(p.name for p in pathlib.Path(run.run_dir).iterdir())
+    for prefix in ("all-", "tracker-", "target-"):
+        if not any(f.startswith(prefix) and f.endswith(".msgpack")
+                   for f in files):
+            raise AssertionError(f"host-train wrote no {prefix}*: {files}")
+    if launches["flood_sweep"] != resets or sum(launches.values()) != resets:
+        raise AssertionError(f"host-train: {resets} resets, launches "
+                             f"{launches} (want flood_sweep once per reset)")
+    for line in _log_lines(run.run_dir, "iter ", "checkpoint "):
+        say("host-train", t0, line)
+    steps = HOST_TRAIN_ITERS * 16 * 20
+    say("host-train", t0, f"run/train_host.py: {HOST_TRAIN_ITERS} "
+        f"iterations of maze-lstm "
+        f"on {BENCH_ENV} at 16 envs x 20 steps in {dt:.3f} s "
+        f"({steps / dt:.1f} env-steps/s, setup included); {resets} env "
+        f"resets; "
+        f"{len(run.trainer.finished_lens)} episodes; loss at iteration "
+        f"{HOST_TRAIN_ITERS} {loss:.6f}; files {files}; launches {launches}")
+
+    # where its time goes: one env's reset, and its step, alone
+    env = run.trainer.pool.envs[0]
+    t1 = time.perf_counter()
+    for _ in range(5):
+        env.reset()
+    torch.cuda.synchronize()
+    reset_s = (time.perf_counter() - t1) / 5
+    t1 = time.perf_counter()
+    for _ in range(20):
+        env.step([0, 0])
+    step_ms = (time.perf_counter() - t1) / 20 * 1e3
+    say("host-train-parts", t0, f"one GymTrackEnv reset {reset_s:.4f} s "
+        f"(mean of 5), one step {step_ms:.3f} ms (mean of 20): "
+        f"{resets} resets ~{resets * reset_s:.1f} s of the run")
+    return launches
+
+
+def phase_host_single(torch, flood, tconfig, dueling, bridge, host_loop):
+    """A single-player discrete HostTrainer on the toy single-agent env:
+    every episode of length 10 is recorded."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    pool = bridge.HostEnvPool([(lambda i=i: ToyImageEnv(i))
+                               for i in range(3)])
+    ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
+    tcfg = tconfig.TrainConfig(num_envs=3, num_steps=6, train_mode=0)
+    model = dueling.build_model(ncfg, 4, (13, 13), device="cuda",
+                                single=True)
+    tr = host_loop.HostTrainer(model, ncfg, tcfg, pool, seed=0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for _ in range(3):
+        m = tr.train_iter(mode=0)
+    torch.cuda.synchronize()
+    moved = sum(float((model.state_dict()[k] - v).abs().sum())
+                for k, v in before.items())
+    if not (np.isfinite(m.loss.item()) and moved > 0
+            and len(tr.finished_lens) >= 3
+            and set(tr.finished_lens) == {10}):
+        raise AssertionError(f"host-single: loss {m.loss.item()}, moved "
+                             f"{moved}, episodes {tr.finished_lens}")
+    say("host-single", t0, f"maze-lstm single on 3 toy envs, 3 x 6 steps: "
+        f"episodes {[int(x) for x in tr.finished_lens]}, loss "
+        f"{m.loss.item():.6f}")
+    return counts(flood)
+
+
+def _learn_direction(tconfig, dueling, host_loop, tat, seed, device="cuda",
+                     mode=None):
+    """One continuous learning run on the direction pool (train mode -1 for
+    the TAT bar, 0 for the tracker's unless `mode` says otherwise); returns
+    the finished episodes' returns and each iteration's pred_loss."""
+    name = "tat-maze-lstm-continuous" if tat else "maze-lstm-continuous"
+    mode = (-1 if tat else 0) if mode is None else mode
+    tcfg = tconfig.TrainConfig(num_envs=32, num_steps=8, train_mode=mode,
+                               lr=1e-3,
+                               entropy_target=0.01 if tat else 0.2)
+    ncfg = tconfig.NetConfig.from_name(name, aux="reward" if tat else "none")
+    model = dueling.build_model(ncfg, 2, (13, 13), device=device,
+                                single=not tat)
+    tr = host_loop.HostTrainer(model, ncfg, tcfg,
+                               DirectionPool(32, seed=5,
+                                             players=2 if tat else 1),
+                               seed=seed, action_low=np.full(2, -2.0),
+                               action_high=np.full(2, 2.0))
+    iters = LEARN_TAT_CONT_ITERS if tat else LEARN_CONT_ITERS
+    preds = [tr.train_iter(mode=mode).pred_loss for _ in range(iters)]
+    return (np.asarray(tr.finished_returns, np.float64),
+            np.array([float(x) for x in preds]))
+
+
+def _thirds(rets):
+    """Mean return of the first and of the last third of the episodes."""
+    return rets[:len(rets) // 3].mean(), rets[-len(rets) // 3:].mean()
+
+
+def _by10(preds):
+    """Means of each 10 iterations, to 3 places."""
+    return [round(float(preds[i:i + 10].mean()), 3)
+            for i in range(0, len(preds), 10)]
+
+
+def _tat_bar(rets, preds):
+    """(early return, late return, pred_loss of the last 20 iterations over
+    that of the first 20, whether tests/test_continuous_tat.py's bar holds:
+    late > early + 2 and that ratio < 0.8)."""
+    early, late = _thirds(rets)
+    ratio = preds[-20:].mean() / preds[:20].mean()
+    return early, late, ratio, (len(rets) > 30 and late > early + 2.0
+                                and ratio < 0.8)
+
+
+def phase_learn_continuous(flood, tconfig, dueling, host_loop):
+    """tests/test_continuous.py's bar: maze-lstm-continuous, 120
+    iterations, late return > early + 2 and > 4."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    rets, _ = _learn_direction(tconfig, dueling, host_loop, False, 0)
+    early, late = _thirds(rets)
+    msg = (f"maze-lstm-continuous single, {LEARN_CONT_ITERS} iterations at "
+           f"32 envs x 8 steps: {len(rets)} episodes, return early "
+           f"{early:.3f} -> late {late:.3f} (bar: +2 and > 4)")
+    if not (len(rets) > 30 and late > early + 2.0 and late > 4.0):
+        raise AssertionError(f"learn-continuous: {msg}")
+    say("learn-continuous", t0, msg)
+    return counts(flood)
+
+
+def _learn_tat_run(job):
+    """One run of the TAT bar, job = (device, seed, train mode), in a
+    process of its own: float32 without TF32, as in main(), one thread on
+    the CPU. Returns its returns, pred_losses and flood launches."""
+    device, seed, mode = job
     import torch
-    if not torch.cuda.is_available():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    from active_tracking_rl_torch import config as tconfig
+    from active_tracking_rl_torch.models import dueling
+    from active_tracking_rl_torch.ops import flood
+    from active_tracking_rl_torch.rl import host_loop
+    reset_counts(flood)
+    rets, preds = _learn_direction(tconfig, dueling, host_loop, True, seed,
+                                   device, mode)
+    return rets, preds, counts(flood)
+
+
+def start_tat_cpu_run():
+    """Starts the TAT bar's seed on the CPU in a spawned process, which
+    overlaps the card's phases; returns (process pool, pending result)."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(_learn_tat_run,
+                                  (("cpu", LEARN_TAT_SEED, -1),))
+
+
+def phase_learn_tat_continuous(torch, flood, tconfig, dueling, host_loop,
+                               cpu_run):
+    """tests/test_continuous_tat.py's bar as written, on the card:
+    tat-maze-lstm-continuous with the aux reward at mode -1, 150
+    iterations at its seed, late return > early + 2 and the mean pred_loss
+    of the last 20 iterations < 0.8 x that of the first 20. The same seed
+    on the CPU (HostTrainer draws on the host: the same parameters and
+    noise) meets it too, and the card's ratio is the CPU's to
+    LEARN_TAT_RATIO_GAP."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    card = _learn_direction(tconfig, dueling, host_loop, True,
+                            LEARN_TAT_SEED)
+    torch.cuda.synchronize()
+    launches = counts(flood)
+    dt = time.perf_counter() - t0
+    pool, pending = cpu_run
+    c_rets, c_preds, c_launches = pending.get(timeout=900)
+    pool.close()
+    pool.join()
+    if sum(c_launches.values()):
+        raise AssertionError(f"learn-tat-continuous on the CPU launched "
+                             f"{c_launches}")
+    parts, ok, ratios = [], True, []
+    for dev, (rets, preds) in (("cuda", card), ("cpu", (c_rets, c_preds))):
+        early, late, ratio, passed = _tat_bar(rets, preds)
+        ok &= passed
+        ratios.append(ratio)
+        parts.append(
+            f"{dev}: {len(rets)} episodes, return {early:.3f} -> {late:.3f}, "
+            f"pred_loss first 20 {preds[:20].mean():.4f} -> last 20 "
+            f"{preds[-20:].mean():.4f} (x{ratio:.3f}), by 10 iterations "
+            f"{_by10(preds)}")
+    gap = float(np.max(np.abs(card[1] - c_preds) / np.abs(c_preds)))
+    msg = (f"tat-maze-lstm-continuous, aux reward, mode -1, seed "
+           f"{LEARN_TAT_SEED}, {LEARN_TAT_CONT_ITERS} iterations at 32 envs "
+           f"x 8 steps in {dt:.3f} s on the card (bar: +2 and x0.8); "
+           + "; ".join(parts) + f"; cuda vs cpu: ratio gap "
+           f"{ratios[0] - ratios[1]:.4f} (bound {LEARN_TAT_RATIO_GAP}), "
+           f"largest relative pred_loss gap {gap:.3g}; launches {launches}")
+    if not (ok and abs(ratios[0] - ratios[1]) <= LEARN_TAT_RATIO_GAP):
+        raise AssertionError(f"learn-tat-continuous: {msg}")
+    say("learn-tat-continuous", t0, msg)
+    return launches
+
+
+def tat_sweep(seeds, devices, control) -> int:
+    """The TAT bar for each of `seeds` on each of `devices` (and, with
+    `control`, at train mode 0, where the target and its aux head do not
+    learn), each run in a spawned process, 8 at a time; prints each run and
+    each (device, mode)'s summary. Returns 0."""
+    import multiprocessing
+    modes = (-1, 0) if control else (-1,)
+    jobs = [(d, s, m) for m in modes for d in devices for s in seeds]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(min(8, len(jobs))) as pool:
+        runs = dict(zip(jobs, pool.map(_learn_tat_run, jobs)))
+    ratios = {}
+    for (dev, seed, mode), (rets, preds, launches) in runs.items():
+        early, late, ratio, passed = _tat_bar(rets, preds)
+        ratios[dev, seed, mode] = ratio
+        say("tat-seeds", t0, f"{dev} mode {mode} seed {seed}: return "
+            f"{early:.3f} -> {late:.3f}, pred_loss x{ratio:.3f} "
+            f"({'meets' if passed else 'misses'} the bar), by 10 iterations "
+            f"{_by10(preds)}; "
+            f"launches {launches}")
+    for mode in modes:
+        for dev in devices:
+            r = np.array([ratios[dev, s, mode] for s in seeds])
+            mean = np.mean([runs[dev, s, mode][1] for s in seeds], axis=0)
+            say("tat-seeds", t0, f"{dev} mode {mode}, seeds {list(seeds)}: "
+                f"ratios mean {r.mean():.3f}, min {r.min():.3f}, max "
+                f"{r.max():.3f}, {int((r >= 0.8).sum())} at or above 0.8; "
+                f"seed-mean curve x{mean[-20:].mean() / mean[:20].mean():.3f}")
+        if {"cuda", "cpu"} <= set(devices):
+            gaps = [float(np.max(np.abs(runs["cuda", s, mode][1]
+                                        - runs["cpu", s, mode][1])
+                                 / np.abs(runs["cpu", s, mode][1])))
+                    for s in seeds]
+            diffs = [round(float(ratios["cuda", s, mode]
+                                 - ratios["cpu", s, mode]), 4) for s in seeds]
+            say("tat-seeds", t0, f"mode {mode}, cuda vs cpu per seed: "
+                f"ratio gaps {diffs}, largest relative pred_loss gaps "
+                f"{[float(f'{g:.3g}') for g in gaps]}")
+    return 0
+
+
+def phase_random_agent(torch, flood, random_agent):
+    """run/random_agent.py on Nav: FPS mode at 4096 envs, then one episode;
+    returns each mode's launches."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    out = random_agent.main(["-e", BENCH_ENV, "--num-envs",
+                             str(RANDOM_AGENT_ENVS), "--seconds",
+                             str(RANDOM_AGENT_SECONDS), "--device", "cuda"])
+    fps_launches = counts(flood)
+    if fps_launches["flood_sweep"] < 1 or sum(fps_launches.values()) != \
+            fps_launches["flood_sweep"]:
+        raise AssertionError(f"random-agent launched {fps_launches}")
+    say("random-agent", t0, f"{RANDOM_AGENT_ENVS} envs on {BENCH_ENV}, "
+        f"{out['blocks']} blocks of 20 random steps in {out['seconds']:.3f} "
+        f"s: {out['fps']:.1f} env-steps/s (the reset not timed); launches "
+        f"{fps_launches}")
+    t1 = time.perf_counter()
+    reset_counts(flood)
+    eps = random_agent.main(["-e", BENCH_ENV, "--episodes", "1",
+                             "--device", "cuda"])
+    ep_launches = counts(flood)
+    if ep_launches["flood_sweep"] != 1 or sum(ep_launches.values()) != 1:
+        raise AssertionError(f"random-agent --episodes 1 launched "
+                             f"{ep_launches}")
+    say("random-agent-episodes", t1, f"1 episode of length {eps[0][0]}, "
+        f"rewards {eps[0][1].round(3).tolist()}; launches {ep_launches}")
+    return fps_launches, ep_launches
+
+
+def parse_args(argv):
+    import argparse
+    p = argparse.ArgumentParser(description="The port's smoke on one GPU; "
+                                "with --tat-seeds, the TAT bar's seed sweep "
+                                "alone.")
+    p.add_argument("--tat-seeds", default=None,
+                   help="seeds of the sweep, as 0-7 or 0,3,5")
+    p.add_argument("--tat-devices", default="cuda,cpu",
+                   help="devices of the sweep (default cuda,cpu)")
+    p.add_argument("--tat-control", action="store_true",
+                   help="also run each seed at train mode 0")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    t_start = time.perf_counter()
+    args = parse_args(argv)
+    import torch
+    devices = args.tat_devices.split(",")
+    if not torch.cuda.is_available() and (args.tat_seeds is None
+                                          or "cuda" in devices):
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if args.tat_seeds is not None:
+        lo, _, hi = args.tat_seeds.partition("-")
+        seeds = (range(int(lo), int(hi) + 1) if hi else
+                 [int(x) for x in args.tat_seeds.split(",")])
+        return tat_sweep(list(seeds), devices, args.tat_control)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -1057,66 +1618,89 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     from active_tracking_rl_torch import config as tconfig
+    from active_tracking_rl_torch.envs import bridge
     from active_tracking_rl_torch.envs import env as env_mod
     from active_tracking_rl_torch.envs import maps
     from active_tracking_rl_torch.models import dueling
     from active_tracking_rl_torch.ops import flood
     from active_tracking_rl_torch.rl import (checkpoint, curriculum,
-                                             evaluate, learner, optim)
+                                             evaluate, host_loop, learner,
+                                             optim)
     from active_tracking_rl_torch.run import eval as eval_cli
-    from active_tracking_rl_torch.run import eval_matrix
+    from active_tracking_rl_torch.run import eval_matrix, random_agent
     from active_tracking_rl_torch.run import train as train_cli
+    from active_tracking_rl_torch.run import train_host
 
-    phase_build(flood)
+    cpu_run = None
+    try:
+        phase_build(flood)
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, (pool_mz, pool_goals) = phase_kernel(torch, flood, maps, tconfig,
-                                               gen)
-    phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
-                    torch.Generator().manual_seed(0))
-    paths = {}
-    paths["main"] = phase_main(
-        torch, flood, tconfig, env_mod, learner, dueling, "main",
-        tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep",
-        ("flood_relax", "flood_sweep16"))
-    paths["maze-main"] = phase_main(
-        torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
-        dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
-                            flood_backend="pallas"),
-        MAZE_ENV, "flood_relax", ("flood_sweep", "flood_sweep16"))
-    model, ncfg, tcfg, paths["advat"] = phase_advat(
-        torch, flood, tconfig, env_mod, learner, dueling, curriculum)
-    paths["advat-eval"] = phase_advat_eval(
-        torch, flood, tconfig, env_mod, evaluate, model, ncfg, tcfg)
-    paths["sweep16-entry"] = phase_sweep16_entry(torch, flood, pool_mz,
-                                                 pool_goals)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        first, paths["cli-train"] = phase_cli_train(torch, flood, train_cli,
-                                                    tmp / "train")
-        paths["cli-resume"] = phase_cli_resume(torch, flood, train_cli,
-                                               checkpoint, first,
-                                               tmp / "train")
-        paths["cli-eval"] = phase_cli_eval(
-            torch, flood, tconfig, env_mod, dueling, evaluate, checkpoint,
-            eval_cli, eval_matrix, first.run_dir, tmp / "eval")
-        paths["cli-nets"] = phase_cli_nets(torch, flood, train_cli, learner,
-                                           optim, tmp / "nets")
-    paths["learn"] = phase_learn(torch, flood, tconfig, env_mod, learner,
-                                 dueling, evaluate)
-    # each kernel's launches on the path that runs it
-    for name, path in (("flood_sweep", "main"), ("flood_relax", "maze-main"),
-                       ("flood_sweep16", "sweep16-entry")):
-        rows[name]["launches"] = paths[path][name]
-    for name, row in rows.items():
-        row["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows, (pool_mz, pool_goals) = phase_kernel(torch, flood, maps,
+                                                   tconfig, gen)
+        phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
+                        torch.Generator().manual_seed(0))
+        phase_reference_host(torch, tconfig, env_mod, bridge, dueling, optim,
+                             host_loop, torch.Generator().manual_seed(1))
+        paths = {}
+        paths["main"] = phase_main(
+            torch, flood, tconfig, env_mod, learner, dueling, "main",
+            tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep",
+            ("flood_relax", "flood_sweep16"))
+        paths["maze-main"] = phase_main(
+            torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
+            dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
+                                flood_backend="pallas"),
+            MAZE_ENV, "flood_relax", ("flood_sweep", "flood_sweep16"))
+        model, ncfg, tcfg, paths["advat"] = phase_advat(
+            torch, flood, tconfig, env_mod, learner, dueling, curriculum)
+        paths["advat-eval"] = phase_advat_eval(
+            torch, flood, tconfig, env_mod, evaluate, model, ncfg, tcfg)
+        paths["sweep16-entry"] = phase_sweep16_entry(torch, flood, pool_mz,
+                                                     pool_goals)
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            first, paths["cli-train"] = phase_cli_train(
+                torch, flood, train_cli, tmp / "train")
+            paths["cli-resume"] = phase_cli_resume(torch, flood, train_cli,
+                                                   checkpoint, first,
+                                                   tmp / "train")
+            paths["cli-eval"] = phase_cli_eval(
+                torch, flood, tconfig, env_mod, dueling, evaluate, checkpoint,
+                eval_cli, eval_matrix, first.run_dir, tmp / "eval")
+            # the TAT bar's CPU run overlaps the card's phases from here
+            cpu_run = start_tat_cpu_run()
+            paths["cli-nets"] = phase_cli_nets(torch, flood, train_cli,
+                                               learner, optim, tmp / "nets")
+            paths["host-train"] = phase_host_train(torch, flood, train_host,
+                                                   tmp / "host")
+        paths["learn"] = phase_learn(torch, flood, tconfig, env_mod, learner,
+                                     dueling, evaluate)
+        paths["host-single"] = phase_host_single(
+            torch, flood, tconfig, dueling, bridge, host_loop)
+        paths["learn-continuous"] = phase_learn_continuous(
+            flood, tconfig, dueling, host_loop)
+        paths["learn-tat-continuous"] = phase_learn_tat_continuous(
+            torch, flood, tconfig, dueling, host_loop, cpu_run)
+        paths["random-agent"], paths["random-agent-episodes"] = \
+            phase_random_agent(torch, flood, random_agent)
+        # each kernel's launches on the path that runs it
+        for name, path in (("flood_sweep", "main"),
+                           ("flood_relax", "maze-main"),
+                           ("flood_sweep16", "sweep16-entry")):
+            rows[name]["launches"] = paths[path][name]
+        for name, row in rows.items():
+            row["launches_by_path"] = {p: n[name] for p, n in paths.items()}
 
-    say("total", t_start)
-    print(json.dumps({"kernels": [rows[k] for k in SOURCES]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        say("total", t_start)
+        print(json.dumps({"kernels": [rows[k] for k in SOURCES]}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    finally:
+        if cpu_run is not None:
+            cpu_run[0].terminate()
     return 0
 
 

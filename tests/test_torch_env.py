@@ -67,11 +67,7 @@ def test_config_matches_jax():
             assert getattr(got, prop) == getattr(want, prop)
     tc, jc = tconfig.TrainConfig(), jconfig.TrainConfig()
     for f in dataclasses.fields(tc):
-        if f.name != "remat":
-            assert getattr(tc, f.name) == getattr(jc, f.name), f.name
-    # the one deliberate difference: remat defaults to on, as the JAX CLI
-    # runs it, where the JAX dataclass defaults to off
-    assert tc.remat and not jc.remat
+        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     assert tconfig.net_config_for(tc).name == jconfig.net_config_for(jc).name
 
 

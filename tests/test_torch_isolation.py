@@ -54,5 +54,6 @@ def test_port_and_smoke_import_no_jax():
     for name in ("rl.curriculum", "rl.evaluate", "models.dueling",
                  "ops.flood", "rl.checkpoint", "run.train", "run.eval",
                  "run.eval_matrix", "utils.flax_msgpack", "utils.logging",
-                 "utils.stats"):
+                 "utils.stats", "envs.bridge", "envs.render", "rl.host_loop",
+                 "run.train_host", "run.random_agent"):
         assert f"active_tracking_rl_torch.{name}" in out, name

@@ -190,6 +190,13 @@ def _assert_step_close(got, want):
 
 
 def test_continuous_names_still_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(NetConfig.from_name("tat-maze-lstm-continuous"), 4,
-                    PARTIAL, device="cpu")
+    """A continuous network builds (tests/test_torch_continuous.py holds it
+    to flax) but the Track2D learner, whose actions are discrete, refuses
+    it and names the host-env trainer."""
+    from active_tracking_rl_torch.config import TrainConfig
+    from active_tracking_rl_torch.rl.learner import make_train_step
+    ncfg = NetConfig.from_name("tat-maze-lstm-continuous")
+    model = build_model(ncfg, 4, PARTIAL, device="cpu")
+    assert model.player0.sigma is not None
+    with pytest.raises(ValueError, match="host_loop"):
+        make_train_step(model, None, ncfg, TrainConfig(), None)

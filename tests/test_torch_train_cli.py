@@ -99,13 +99,22 @@ def test_flags_match_the_jax_cli():
 @pytest.mark.parametrize("flags,item", [
     (["--num-processes", "2", "--process-id", "1"], "item 8"),
     (["--coordinator", "localhost:1234"], "item 8"),
-    (["--local-devices", "4"], "item 8"),
-    (["--network", "tat-maze-lstm-continuous"], "item 6")])
+    (["--local-devices", "4"], "item 8")])
 def test_unported_features_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--device", "cpu", "--env", RAM, "--env-base", RAM,
                         "--num-envs", "4", "--reset-pool", "4",
                         "--log-dir", str(tmp_path)] + flags)
+
+
+def test_continuous_network_is_refused(tmp_path):
+    """Track2D's actions are discrete: the CLI refuses a continuous network
+    and names the host-env trainer, which trains it."""
+    with pytest.raises(ValueError, match="train_host"):
+        train_mod.main(["--device", "cpu", "--env", RAM, "--env-base", RAM,
+                        "--num-envs", "4", "--reset-pool", "4",
+                        "--network", "tat-maze-lstm-continuous",
+                        "--log-dir", str(tmp_path)])
 
 
 def test_eval_matrix_writes_wilson_intervals(tmp_path):
