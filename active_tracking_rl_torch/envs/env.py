@@ -43,6 +43,20 @@ def draw_reset(cfg: EnvConfig, n: int, generator: torch.Generator,
     return draws
 
 
+def draw_rows(draws, lo: int, hi: int):
+    """Rows [lo, hi) of every draw in `draws` (a draws dataclass whose
+    tensors all lead with the rows)."""
+    def cut(v):
+        if isinstance(v, torch.Tensor):
+            return v[lo:hi]
+        if dataclasses.is_dataclass(v):
+            return draw_rows(v, lo, hi)
+        return v
+
+    return dataclasses.replace(draws, **{f.name: cut(getattr(draws, f.name))
+                                         for f in dataclasses.fields(draws)})
+
+
 @functools.lru_cache(maxsize=None)
 def _reward_constants(max_d: float, w_p: float, device: torch.device):
     """1, -2/pob and -w_p/pob as float32 scalars on `device`."""
@@ -154,21 +168,38 @@ class TrackEnv:
     def step(self, state: EnvState, actions: torch.Tensor):
         return step(self.cfg, state, actions)
 
-    def reset_batch(self, n: int, generator: torch.Generator
+    def reset_batch(self, n: int, generator: torch.Generator,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[EnvState, torch.Tensor]:
-        """n fresh episodes, drawn from `generator`."""
-        return reset(self.cfg, self.draw_reset(n, generator))
+        """n fresh episodes, drawn from `generator`. With `rows` = (lo, hi)
+        the draws of all n rows are made (the generator advances as for n)
+        and only rows lo..hi-1 are reset: a data-parallel rank's block."""
+        draws = self.draw_reset(n, generator)
+        if rows is not None and rows != (0, n):
+            draws = draw_rows(draws, *rows)
+        return reset(self.cfg, draws)
 
     def reset_batch_chunked(self, n: int, generator: torch.Generator,
-                            chunk_max: int = 4096
+                            chunk_max: int = 4096,
+                            rows: Optional[Tuple[int, int]] = None
                             ) -> Tuple[EnvState, torch.Tensor]:
         """reset_batch in row groups of at most chunk_max, which bounds the
         peak memory of the draws and flood fields. Each group draws its own
-        rows, so with one group this is reset_batch exactly."""
+        rows, so with one group this is reset_batch exactly. `rows` as in
+        reset_batch: every group draws, and only the rows in lo..hi-1 are
+        reset."""
+        lo, hi = rows if rows is not None else (0, n)
         num_chunks = -(-n // chunk_max)
         chunk = -(-n // num_chunks)
-        parts = [self.reset_batch(min(chunk, n - lo), generator)
-                 for lo in range(0, n, chunk)]
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            a, b = max(lo, c0), min(hi, c1)
+            draws = self.draw_reset(c1 - c0, generator)
+            if a < b:
+                if (a, b) != (c0, c1):
+                    draws = draw_rows(draws, a - c0, b - c0)
+                parts.append(reset(self.cfg, draws))
         if len(parts) == 1:
             return parts[0]
         states, obs = zip(*parts)

@@ -69,10 +69,14 @@ def obs_to_model(obs_stack: torch.Tensor) -> torch.Tensor:
 
 
 def init_carry(env: TrackEnv, net_cfg: NetConfig, num_envs: int,
-               generator: torch.Generator, chunk_max: int = 4096) -> TrainCarry:
-    state, obs = env.reset_batch_chunked(num_envs, generator, chunk_max)
-    hx = torch.zeros((num_envs, 2, net_cfg.rnn_out), dtype=torch.float32,
-                     device=env.device)
+               generator: torch.Generator, chunk_max: int = 4096,
+               rows: Optional[Tuple[int, int]] = None) -> TrainCarry:
+    """The carry of `num_envs` fresh episodes; with `rows` = (lo, hi) all
+    of them are drawn and only rows lo..hi-1 kept (a rank's block)."""
+    state, obs = env.reset_batch_chunked(num_envs, generator, chunk_max,
+                                         rows)
+    hx = torch.zeros((state.num_rows, 2, net_cfg.rnn_out),
+                     dtype=torch.float32, device=env.device)
     return TrainCarry(state, stack_fill(obs, net_cfg.stack_frames), hx,
                       hx.clone(), generator)
 
@@ -88,7 +92,8 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
                 carry: TrainCarry, pool: Optional[Tuple[EnvState,
                                                         torch.Tensor]] = None,
                 pool_ptr: Optional[torch.Tensor] = None,
-                action_noise: Optional[torch.Tensor] = None
+                action_noise: Optional[torch.Tensor] = None,
+                pool_blocks: int = 1
                 ) -> Tuple[Trajectory, TrainCarry, torch.Tensor]:
     """T = tcfg.num_steps steps for all rows -> (traj, carry', pool_ptr').
 
@@ -96,6 +101,9 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
     rows from the carry's generator. `pool_ptr`: the autoreset pointer to
     start from (a pool reused across iterations must thread it; None is 0).
     `action_noise`: (T, B, 2, A) Gumbel noise; None draws it.
+    `pool_blocks` d > 1: batch and pool split into d blocks, block i taking
+    its resets from pool block i under its own pointer (env.autoreset with
+    a (d,) pointer): what d data-parallel ranks compute, in one process.
     """
     gen = carry.generator
     if pool is None:
@@ -105,7 +113,8 @@ def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,
     if action_noise is None:
         action_noise = draw_action_noise(tcfg.num_steps, b, env.num_actions,
                                          gen, env.device)
-    ptr = (torch.zeros((), dtype=torch.int64, device=env.device)
+    ptr = (torch.zeros(() if pool_blocks == 1 else (pool_blocks,),
+                       dtype=torch.int64, device=env.device)
            if pool_ptr is None else pool_ptr)
 
     def model_step(obs_stack, hx, cx, noise):

@@ -6,7 +6,26 @@ backward, clipped optimizer step). Every `--checkpoint-every` iterations
 and at the last, the greedy evaluator runs `--test-eps` episodes on
 `--env-base`, and the checkpoint manager writes flax-format parameter files
 and the exact-resume state ``train_state.pt``. The flags, their defaults
-and the scalar names are the JAX CLI's, plus `--device` and `--no-split`.
+and the scalar names are the JAX CLI's, plus `--device`, `--no-split` and
+`--dist-backend`.
+
+With `--num-processes` W > 1 the run is data-parallel over
+``torch.distributed`` (``parallel/mesh.py``), one process per device: rank
+r holds rows [rB/W, (r+1)B/W) of the `--num-envs` B rows and block r of the
+reset pool, the gradients are averaged over the ranks before the clipped
+update, and the metrics are the global ones. W ranks compute what one
+process computes with ``make_train_step(..., pool_blocks=W)``. Every rank
+evaluates and tracks the best score; only rank 0 writes parameter files,
+``train_state.pt`` (with the gathered carry and every rank's pool pointer)
+and ``ckpt_meta.json``; rank r > 0 logs to the run dir suffixed ``-r{r}``.
+A resume needs the same W. Two ranks on the CPU:
+
+    python -m active_tracking_rl_torch.run.train --device cpu \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id R ...
+
+(one command per rank R); on N cards use `--device cuda` (rank r drives
+``cuda:r``, over nccl). Several ranks on one card need `--dist-backend
+gloo`.
 
 AD-VAT (the default config) on the card:
 
@@ -38,7 +57,7 @@ import dataclasses
 import os
 import time
 from datetime import datetime
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +68,9 @@ from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.envs.types import EnvState
 from active_tracking_rl_torch.models.dueling import (build_model,
                                                      params_to_flax)
+from active_tracking_rl_torch.parallel.mesh import (Mesh, MeshSpec,
+                                                    host_init, make_mesh,
+                                                    shutdown)
 from active_tracking_rl_torch.rl import curriculum
 from active_tracking_rl_torch.rl.checkpoint import (CheckpointManager,
                                                     load_params,
@@ -59,6 +81,8 @@ from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
 from active_tracking_rl_torch.rl.rollout import TrainCarry
 from active_tracking_rl_torch.utils.logging import (MetricWriter, close_logger,
                                                     setup_logger)
+from active_tracking_rl_torch.utils.platform import (default_backend,
+                                                     resolve_device)
 
 #: offsets of the per-iteration pool and eval generators' seeds
 POOL_SEED, EVAL_SEED = 777, 999
@@ -127,11 +151,22 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="check every iteration's metrics for NaN/Inf and "
                         "abort naming the fields")
     p.add_argument("--coordinator", default=None,
-                   help="multi-process training is not ported yet "
-                        "(ROADMAP §1 item 8)")
-    p.add_argument("--num-processes", type=int, default=1)
-    p.add_argument("--process-id", type=int, default=0)
-    p.add_argument("--local-devices", type=int, default=None)
+                   help="host:port of rank 0, where the ranks of a "
+                        "multi-process run meet (torch.distributed)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="data-parallel ranks, one process per device; "
+                        "--num-envs and --reset-pool split over them")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's rank, 0 .. --num-processes - 1")
+    p.add_argument("--local-devices", type=int, default=None,
+                   help="only 1: torch has no virtual devices, so run one "
+                        "process per device")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend (default nccl on cuda, "
+                        "gloo on cpu). NCCL takes one card per rank: two "
+                        "ranks on one card fail with its 'Duplicate GPU "
+                        "detected' error; use gloo to run several ranks on "
+                        "one card")
     p.add_argument("--run-name", default=None,
                    help="fixed run-dir name instead of the timestamp")
     p.add_argument("--device", default="cuda",
@@ -184,21 +219,29 @@ def iteration_generator(base_seed: int, it: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed[0]))
 
 
-def carry_state(carry: TrainCarry) -> Dict[str, Any]:
-    """The carry as a dict of tensors (train_state.pt's "carry")."""
-    return {"env_state": {f.name: getattr(carry.env_state, f.name)
+def carry_state(carry: TrainCarry, mesh: Mesh = Mesh()) -> Dict[str, Any]:
+    """The carry as a dict of tensors (train_state.pt's "carry"); over
+    several ranks, every rank's rows gathered in rank order (a collective:
+    every rank calls it). The generator is in one state on every rank."""
+    gather = mesh.gather_rows
+    return {"env_state": {f.name: gather(getattr(carry.env_state, f.name))
                           for f in dataclasses.fields(EnvState)},
-            "obs_stack": carry.obs_stack, "hx": carry.hx, "cx": carry.cx,
+            "obs_stack": gather(carry.obs_stack), "hx": gather(carry.hx),
+            "cx": gather(carry.cx),
             "generator": carry.generator.get_state()}
 
 
-def restore_carry(saved: Dict[str, Any],
-                  generator: torch.Generator) -> TrainCarry:
-    """The carry of `carry_state`; `generator` takes its saved state (a
-    CPU byte tensor, whatever device the rest was loaded to)."""
+def restore_carry(saved: Dict[str, Any], generator: torch.Generator,
+                  rows: Optional[Tuple[int, int]] = None) -> TrainCarry:
+    """The carry of `carry_state`, its rows lo..hi-1 if `rows` is given;
+    `generator` takes its saved state (a CPU byte tensor, whatever device
+    the rest was loaded to)."""
     generator.set_state(saved["generator"].cpu())
-    return TrainCarry(EnvState(**saved["env_state"]), saved["obs_stack"],
-                      saved["hx"], saved["cx"], generator)
+    lo, hi = rows if rows is not None else (None, None)
+    return TrainCarry(
+        EnvState(**{k: v[lo:hi] for k, v in saved["env_state"].items()}),
+        saved["obs_stack"][lo:hi], saved["hx"][lo:hi], saved["cx"][lo:hi],
+        generator)
 
 
 @dataclasses.dataclass
@@ -218,6 +261,8 @@ class Session:
     carry: TrainCarry
     cur: curriculum.CurriculumState
     ckpt: CheckpointManager
+    #: the data-parallel mesh; Mesh() for one process
+    mesh: Mesh = Mesh()
     start_iter: int = 0
     #: the autoreset pointer of a pool refreshed every K > 1 iterations
     pool_ptr: Optional[torch.Tensor] = None
@@ -229,30 +274,47 @@ def setup(argv=None) -> Session:
     """Parse `argv`, build env, model, optimizer and carry, and restore a
     resumed run's state."""
     args = build_argparser().parse_args(argv)
-    if args.num_processes != 1 or args.coordinator or (
-            args.local_devices not in (None, 1)):
-        raise NotImplementedError(
-            "multi-process and multi-device training are not ported yet "
-            "(ROADMAP §1 item 8): run one process on one device")
+    if args.local_devices not in (None, 1):
+        raise ValueError(f"--local-devices {args.local_devices}: torch has "
+                         f"no virtual devices; run one process per device "
+                         f"(--num-processes)")
     tcfg = train_config_from_args(args)
     ncfg = net_config_from_args(args, tcfg)
-    device = torch.device(args.device)
-
-    run_name = args.run_name or datetime.now().strftime("%b%d_%H-%M")
-    run_dir = os.path.join(tcfg.log_dir, tcfg.env_id, run_name)
-    log = setup_logger(f"{tcfg.env_id}_log", os.path.join(run_dir, "logger"))
+    world = args.num_processes
+    if tcfg.num_envs % world or tcfg.reset_pool % world:
+        raise ValueError(
+            f"--num-envs ({tcfg.num_envs}) and --reset-pool "
+            f"({tcfg.reset_pool}) must be divisible by the dp mesh size "
+            f"{world}")
+    device = resolve_device(args.device, args.process_id)
+    if world == 1 and args.coordinator:
+        raise ValueError("--coordinator needs --num-processes > 1")
+    host_init(args.coordinator, world, args.process_id,
+              args.dist_backend or default_backend(device), device)
+    mesh = make_mesh(MeshSpec())
+    try:
+        run_name = args.run_name or datetime.now().strftime("%b%d_%H-%M")
+        if not mesh.is_lead:
+            run_name += f"-r{mesh.rank}"
+        run_dir = os.path.join(tcfg.log_dir, tcfg.env_id, run_name)
+        log = setup_logger(f"{tcfg.env_id}_log",
+                           os.path.join(run_dir, "logger"))
+    except BaseException:
+        shutdown()
+        raise
     for k, v in vars(args).items():
         log.info(f"{k}: {v}")
 
     try:
-        return _build(args, tcfg, ncfg, device, run_dir, log)
+        return _build(args, tcfg, ncfg, device, run_dir, log, mesh)
     except BaseException:
         close_logger(log)
+        shutdown()
         raise
 
 
 def _build(args, tcfg: TrainConfig, ncfg: NetConfig, device: torch.device,
-           run_dir: str, log) -> Session:
+           run_dir: str, log, mesh: Mesh) -> Session:
     ecfg = parse_env_id(tcfg.env_id)
     base_cfg = parse_env_id(tcfg.env_base)
     if args.center_full_obs:
@@ -262,22 +324,28 @@ def _build(args, tcfg: TrainConfig, ncfg: NetConfig, device: torch.device,
     env_base = TrackEnv(base_cfg, device)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=device)
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
-    state = init_learner(model, env, ncfg, tcfg, generator)
+    state = init_learner(model, env, ncfg, tcfg, generator, mesh)
     if args.load_model_dir:
         load_params(model, args.load_model_dir)
     session = Session(args, tcfg, ncfg, device, run_dir, log, env, env_base,
                       model, state.opt, state.carry,
                       curriculum.CurriculumState.initial(tcfg),
-                      CheckpointManager(run_dir, split=tcfg.split))
+                      CheckpointManager(run_dir, split=tcfg.split), mesh)
     if args.resume:
         saved = load_train_state(args.resume, map_location=device)
+        if saved.get("world", 1) != mesh.world:
+            raise ValueError(f"{args.resume} was saved by "
+                             f"{saved.get('world', 1)} processes; resume it "
+                             f"with as many (--num-processes)")
         model.load_state_dict(saved["model"])
         session.opt.load_state_dict(saved["optimizer"])
-        session.carry = restore_carry(saved["carry"], generator)
+        session.carry = restore_carry(saved["carry"], generator,
+                                      mesh.rows(tcfg.num_envs))
         session.cur = curriculum.CurriculumState(**saved["curriculum"])
         session.ckpt.max_score = float(saved["max_score"])
         session.start_iter = int(saved["step"])
-        session.pool_ptr = saved["pool_ptr"]
+        ptr = saved["pool_ptr"]
+        session.pool_ptr = None if ptr is None else ptr[mesh.rank]
         log.info(f"resumed from {args.resume} at iter {session.start_iter}")
     return session
 
@@ -286,8 +354,9 @@ def run(s: Session) -> Session:
     """Iterations start_iter + 1 .. total; returns the session at the end."""
     args, tcfg = s.args, s.tcfg
     refresh = args.pool_refresh
-    train_step = make_train_step(s.model, s.env, s.ncfg, tcfg, s.opt)
-    pool_fn = make_pool_fn(s.env, tcfg)
+    train_step = make_train_step(s.model, s.env, s.ncfg, tcfg, s.opt,
+                                 mesh=s.mesh)
+    pool_fn = make_pool_fn(s.env, tcfg, s.mesh)
     evaluator = make_evaluator(s.model, s.env_base, s.ncfg, tcfg.test_eps)
     writer = MetricWriter(s.run_dir)
     profiler = None
@@ -300,7 +369,8 @@ def run(s: Session) -> Session:
             if args.profile_dir and it == s.start_iter + 10:
                 profiler = _start_profiler(s.device)
             if profiler is not None and it == s.start_iter + 15:
-                _stop_profiler(profiler, args.profile_dir, s.device)
+                _stop_profiler(profiler, args.profile_dir, s.device,
+                               s.mesh.rank)
                 profiler = None
                 s.log.info(f"profiler trace written to {args.profile_dir}")
             s.cur = curriculum.update(tcfg, s.cur, it)
@@ -352,23 +422,39 @@ def run(s: Session) -> Session:
 
 def _evaluate_and_save(s: Session, evaluator, writer: MetricWriter,
                        it: int) -> None:
+    """Every rank evaluates (same parameters, same seed) and tracks the
+    best-score watermark; only the lead writes files."""
     t0 = time.time()
+    mesh = s.mesh
+    lead = mesh.is_lead
     ev = evaluator(iteration_generator(s.tcfg.seed + EVAL_SEED, it, s.device))
-    writer.write(it, {
-        "test/reward0": ev["R_mean"][0],
-        "test/reward1": ev["R_mean"][1],
-        "test/eps_len": ev["EL_mean"],
-        "test/success_rate": ev["S_rate"],
-    })
+    if lead:
+        writer.write(it, {
+            "test/reward0": ev["R_mean"][0],
+            "test/reward1": ev["R_mean"][1],
+            "test/eps_len": ev["EL_mean"],
+            "test/success_rate": ev["S_rate"],
+        })
     seconds = time.time() - t0
-    state_blob = {"model": s.model.state_dict(),
-                  "optimizer": s.opt.state_dict(),
-                  "carry": carry_state(s.carry),
-                  "curriculum": dataclasses.asdict(s.cur),
-                  "step": it,
-                  "pool_ptr": s.pool_ptr}
-    best = s.ckpt.save(params_to_flax(s.model.state_dict(), s.ncfg),
-                       state_blob, float(ev["R_mean"][0]), it)
+    # gathering the carry and the pool pointers is a collective: every rank
+    carry = carry_state(s.carry, mesh)
+    pool_ptr = s.pool_ptr
+    if pool_ptr is not None:
+        pool_ptr = mesh.gather_rows(pool_ptr.reshape(1))
+    score = float(ev["R_mean"][0])
+    if lead:
+        state_blob = {"model": s.model.state_dict(),
+                      "optimizer": s.opt.state_dict(),
+                      "carry": carry,
+                      "curriculum": dataclasses.asdict(s.cur),
+                      "step": it,
+                      "pool_ptr": pool_ptr,
+                      "world": mesh.world}
+        best = s.ckpt.save(params_to_flax(s.model.state_dict(), s.ncfg),
+                           state_blob, score, it)
+    else:
+        best = score >= s.ckpt.max_score
+        s.ckpt.max_score = max(s.ckpt.max_score, score)
     s.log.info(f"eval iter {it}: R {ev['R_mean'].round(2)} EL "
                f"{float(ev['EL_mean']):.1f} S {float(ev['S_rate']):.2f} "
                f"({seconds:.3f} s)" + (" [best]" if best else ""))
@@ -383,12 +469,15 @@ def _start_profiler(device: torch.device):
     return profiler
 
 
-def _stop_profiler(profiler, profile_dir: str, device: torch.device) -> None:
+def _stop_profiler(profiler, profile_dir: str, device: torch.device,
+                   rank: int) -> None:
+    """Write the trace as trace.json (rank r > 0: trace-r{r}.json)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
-    profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    name = "trace.json" if rank == 0 else f"trace-r{rank}.json"
+    profiler.export_chrome_trace(os.path.join(profile_dir, name))
 
 
 def main(argv=None) -> Session:
@@ -397,6 +486,7 @@ def main(argv=None) -> Session:
         return run(s)
     finally:
         close_logger(s.log)
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -27,9 +27,12 @@ Phases (each prints one line with its seconds):
      kernel's largest side; then the host trainer's shape, one row (a
      GymTrackEnv reset): 4 Block and 4 Empty maps at S=82, each alone with
      16 goals and with 4 goals holding (-1,-1) pads, at iters 256 and 20;
-     flood_sweep16 must also equal flood_sweep; prints each launcher's, its
-     twin's and its bound's time on a 512-row pool and on one row, and the
-     depth of the timed fields with the levels that their output implies;
+     then dp-train's shapes, a rank's 256-row pool block and its 2048-row
+     initial carry of Block maps, 16 goals at the env's flood_iters (each
+     also timed for flood_sweep); flood_sweep16 must also equal
+     flood_sweep; prints each launcher's, its twin's and its bound's time
+     on a 512-row pool and on one row, and the depth of the timed fields
+     with the levels that their output implies;
   4. reference: the port on the card against the port on the CPU (where the
      floods are the plain twins): reset and 3 steps bit for bit (float state
      to 1e-6) for one id of every (map, obs, target) at level 0, a Moore
@@ -122,7 +125,38 @@ Phases (each prints one line with its seconds):
      0.05;
  18. random-agent: `run/random_agent.py:main` on Track2D-BlockPartialNav-v0,
      FPS mode at 4096 envs for 3 s (its reset must launch flood_sweep, and
-     no other kernel), then --episodes 1 without --gif (one launch).
+     no other kernel), then --episodes 1 without --gif (one launch);
+ 19. dp-train: the trainer CLI, `run/train.py:main`, as 2 spawned ranks
+     over gloo sharing cuda:0 (NCCL takes one card per rank), on the main
+     config (maze-lstm on Track2D-BlockPartialNav-v0, train mode 0) at
+     4096 envs, a pool of 512, 20 steps, 3 iterations, a checkpoint and an
+     eval of 8 episodes at 3: both ranks' parameter digests and eval lines
+     equal; rank 1's run dir (`-r1`) holds no parameter file, no
+     train_state.pt and no ckpt_meta.json; each rank launched flood_sweep
+     on its 2048-row initial carry, on its 256-row pool block each
+     iteration and on the eval's reset, and no other kernel; the final
+     parameters equal, to 1e-5 of each tensor's largest entry, those of
+     the same seed in one process with pool_blocks=2; prints env-steps/s
+     (a check that the path runs: two ranks share one card);
+ 20. scaling: `parallel/scaling.py --dp 1 2` at 1024 envs per device: a
+     row at dp 1 (a spawned rank, 3 timed steps) and a skipped row at dp 2
+     naming the one card;
+ 21. dp-nccl: `parallel/mp_check.py` as one spawned rank, a process group
+     of one over nccl on cuda:0, started with phase 20 and overlapping it:
+     its digest (a hash of every parameter's bytes), loss and launches
+     (none) equal, bit for bit, those of the same 3 steps in this process
+     without a process group;
+ 22. profile: `run/profile_summary.py --capture`: torch.profiler over 3
+     train steps of maze-lstm on Track2D-BlockPartialNav-v0 at 4096 envs on
+     a given pool; the summary must come from device events, its kernel,
+     memcpy, memset and idle shares sum to 1 within 1e-3; prints the top 5
+     ops, the kernel share and the idle share;
+ 23. demo: `run/demo.py` with cli-train's tracker and target files, one
+     greedy Nav episode: frames = episode length + 1, flood_sweep launched
+     once (the reset); writes the GIF where PIL imports, else shows that
+     --gif raises and runs without it; prints which case held;
+ 24. parity: `run/parity.py` record, then verify, on the card (exit 0);
+     verify of a copy with one observation changed exits 1.
 Then one JSON line with the kernel table (each row also carries the levels
 its timed output implies, its times at one row, `host_shape`, and its
 launches on every path), the card's line from nvidia-smi, and the last line
@@ -135,6 +169,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -203,6 +238,24 @@ LEARN_CONT_ITERS, LEARN_TAT_CONT_ITERS = 120, 150
 LEARN_TAT_SEED, LEARN_TAT_RATIO_GAP = 0, 0.05
 #: the random agent's FPS mode
 RANDOM_AGENT_ENVS, RANDOM_AGENT_SECONDS = 4096, 3
+#: dp-train: the trainer CLI on the main config as 2 gloo ranks sharing
+#: cuda:0, 3 iterations and one small eval
+DP_ENVS, DP_POOL, DP_ITERS, DP_TEST_EPS = 4096, 512, 3, 8
+DP_TRAIN_FLAGS = ["--env", BENCH_ENV, "--env-base", BENCH_ENV,
+                  "--network", "maze-lstm", "--aux", "none",
+                  "--train-mode", "0", "--num-envs", str(DP_ENVS),
+                  "--reset-pool", str(DP_POOL), "--num-steps",
+                  str(NUM_STEPS), "--total-iters", str(DP_ITERS),
+                  "--checkpoint-every", str(DP_ITERS), "--test-eps",
+                  str(DP_TEST_EPS), "--run-name", "dp", "--device", "cuda",
+                  "--dist-backend", "gloo"]
+#: 2 ranks against one process with pool_blocks=2: each parameter tensor's
+#: largest difference over its largest entry
+DP_PARAM_RTOL = 1e-5
+#: seconds a spawned rank, or a --dp value of the scaling harness, may take
+DP_TIMEOUT = 300
+#: the scaling harness: envs per device, timed steps
+SCALING_ENVS, SCALING_ITERS = 1024, 3
 
 SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_sweep16": "active_tracking_rl_torch/csrc/flood_bfs.cu",
@@ -470,6 +523,29 @@ def phase_kernel(torch, flood, maps, tconfig, gen):
         say("kernel-time-host", t0, f"{name} at {shape} iters {iters} "
             f"({env_id}): kernel {kernel_ms:.4f} ms, twin {plain_ms:.3f} "
             f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    # dp-train's shapes: each of 2 ranks floods its 2048-row initial carry
+    # and its 256-row pool block of the main env's maps, 16 goals at the
+    # env's flood_iters; every launcher against its twin, flood_sweep timed
+    t3 = time.perf_counter()
+    carry_mz = pool_maps(BENCH_ENV, DP_ENVS // 2)
+    carry_goals = free_goals(carry_mz, 16)
+    dp_shapes = {}
+    for n in (DP_POOL // 2, DP_ENVS // 2):
+        mz, goals = carry_mz[:n].contiguous(), carry_goals[:n].contiguous()
+        check(mz, goals, iters)
+        kernel = flood.KERNELS["sweep"]
+        kernel_ms = cuda_ms(lambda: kernel(mz, goals, iters), 20)
+        plain_ms = cuda_ms(lambda: flood.PLAIN["sweep"](mz, goals, iters), 3)
+        bound_ms, bound_by = bound(mz, goals, kernel(mz, goals, iters),
+                                   flood.INF)
+        shape = f"{n}x{goals.shape[1]}x{mz.shape[-1]}^2"
+        dp_shapes[shape] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by)
+        say("kernel-dp", t3, f"flood_sweep at {shape} iters {iters} "
+            f"({BENCH_ENV}, dp-train's rank shape): every launcher == its "
+            f"twin bit for bit; kernel {kernel_ms:.4f} ms, twin "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    rows["flood_sweep"]["dp_shapes"] = dp_shapes
     for row in rows.values():  # every case of this phase counts
         row["max_abs_err"] = errs[row["name"]]
     return rows, inputs[BENCH_ENV]
@@ -1441,8 +1517,7 @@ def _learn_tat_run(job):
     the CPU. Returns its returns, pred_losses and flood launches."""
     device, seed, mode = job
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32(torch)
     if device == "cpu":
         torch.set_num_threads(1)
     from active_tracking_rl_torch import config as tconfig
@@ -1580,6 +1655,301 @@ def phase_random_agent(torch, flood, random_agent):
     return fps_launches, ep_launches
 
 
+def _no_tf32(torch):
+    """float32 means float32: no TF32 in matmuls or cuDNN convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _mp_check_rank(port):
+    """dp-nccl's rank, in a process of its own: parallel/mp_check.py as a
+    group of one over nccl on cuda:0. Returns its line's fields and its
+    flood launches."""
+    import torch
+    _no_tf32(torch)
+    from active_tracking_rl_torch.ops import flood
+    from active_tracking_rl_torch.parallel import mp_check
+    out = mp_check.main(["--coordinator", f"127.0.0.1:{port}",
+                         "--num-processes", "1", "--process-id", "0",
+                         "--device", "cuda", "--dist-backend", "nccl",
+                         "--timeout", str(DP_TIMEOUT)])
+    return out, counts(flood)
+
+
+def start_dp_nccl():
+    """Starts dp-nccl's rank in a spawned process, which overlaps the
+    scaling phase (both spend their time starting a process; the rank's 3
+    steps are tiny); returns (t0, process pool, pending result)."""
+    import multiprocessing
+    from active_tracking_rl_torch.parallel.mesh import free_port
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return (time.perf_counter(), pool,
+            pool.apply_async(_mp_check_rank, (free_port(),)))
+
+
+def phase_dp_nccl(torch, flood, started):
+    """parallel/mp_check.py as one spawned rank over nccl on cuda:0: its
+    digest equals, bit for bit, that of the same three steps in this
+    process without a process group."""
+    from active_tracking_rl_torch.parallel import mp_check
+    t0, pool, pending = started
+    try:
+        out, launches = pending.get(timeout=DP_TIMEOUT)
+    finally:
+        pool.terminate()
+    model, _, m = mp_check.run_check(1, "cuda", 3)
+    torch.cuda.synchronize()
+    want = mp_check.digest(model)
+    if (out["world"], out["digest"]) != (1, want) or \
+            out["loss"] != float(m.loss) or sum(launches.values()):
+        raise AssertionError(f"dp-nccl: rank {out} (launches {launches}) vs "
+                             f"one process: digest {want}, loss "
+                             f"{float(m.loss)}")
+    say("dp-nccl", t0, f"(started with scaling) mp_check over nccl, "
+        f"world 1 on cuda:0: MPCHECK "
+        f"rank={out['rank']} loss={out['loss']:.6f} digest={out['digest']} "
+        f"world={out['world']}; equal to 3 steps without a process group "
+        f"bit for bit; launches {launches}")
+    return launches
+
+
+class _RowLog:
+    """Wraps a flood launcher: keeps each launch's row count, then calls
+    the launcher (whose count is the launch count)."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.rows = []
+
+    def __call__(self, maze, goals, iters):
+        self.rows.append(int(maze.shape[0]))
+        return self.kernel(maze, goals, iters)
+
+
+def _dp_train_rank(rank, port, argv):
+    """One rank of dp-train in a process of its own: run/train.py:main as
+    rank `rank` of 2 over gloo on cuda:0. Returns its run dir, files, eval
+    lines, parameters (on the host), flood launches and their row counts,
+    and its seconds."""
+    import torch
+    _no_tf32(torch)
+    from active_tracking_rl_torch.ops import flood
+    from active_tracking_rl_torch.parallel import mp_check
+    from active_tracking_rl_torch.run import train as train_cli
+    log = flood.KERNELS["sweep"] = _RowLog(flood.KERNELS["sweep"])
+    reset_counts(flood)
+    t0 = time.perf_counter()
+    s = train_cli.main(argv + ["--coordinator", f"127.0.0.1:{port}",
+                               "--num-processes", "2", "--process-id",
+                               str(rank)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"run_dir": s.run_dir,
+            "files": sorted(p.name for p in pathlib.Path(s.run_dir).iterdir()),
+            "evals": [re.sub(r" \([0-9.]+ s\)", "", line)
+                      for line in _log_lines(s.run_dir, "eval ")],
+            "digest": mp_check.digest(s.model),
+            "params": {k: v.cpu() for k, v in s.model.state_dict().items()},
+            "launches": {k.name: k.launches for k in (
+                flood.FLOOD_SWEEP, flood.FLOOD_SWEEP16, flood.FLOOD_RELAX)},
+            "rows": log.rows, "seconds": dt}
+
+
+def phase_dp_train(torch, flood, train_cli, learner, curriculum, tmp):
+    """The trainer CLI as 2 ranks over gloo on cuda:0 (the main config),
+    then the same seed in one process with pool_blocks=2."""
+    import multiprocessing
+    from active_tracking_rl_torch.parallel.mesh import free_port
+    t0 = time.perf_counter()
+    argv = DP_TRAIN_FLAGS + ["--log-dir", str(tmp)]
+    port = free_port()
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        pending = [pool.apply_async(_dp_train_rank, (r, port, argv))
+                   for r in range(2)]
+        ranks = [p.get(timeout=DP_TIMEOUT) for p in pending]
+    t_ranks = time.perf_counter() - t0
+    lead, other = ranks
+    if lead["digest"] != other["digest"] or lead["evals"] != other["evals"] \
+            or not lead["evals"]:
+        raise AssertionError(f"dp-train: the ranks differ: digests "
+                             f"{lead['digest']} {other['digest']}, evals "
+                             f"{lead['evals']} {other['evals']}")
+    if other["run_dir"] != lead["run_dir"] + "-r1" or any(
+            f.endswith(".msgpack") or f in ("train_state.pt",
+                                            "ckpt_meta.json")
+            for f in other["files"]) or "train_state.pt" not in lead["files"]:
+        raise AssertionError(f"dp-train: lead wrote {lead['files']}, rank 1 "
+                             f"{other['files']}")
+    # each rank: its initial carry, its pool block each iteration, the eval
+    want_rows = ([DP_ENVS // 2] + [DP_POOL // 2] * DP_ITERS
+                 + [DP_TEST_EPS])
+    for r in ranks:
+        if r["rows"] != want_rows or r["launches"]["flood_sweep"] != len(
+                want_rows) or sum(r["launches"].values()) != len(want_rows):
+            raise AssertionError(f"dp-train: a rank launched {r['launches']} "
+                                 f"at rows {r['rows']} (want flood_sweep at "
+                                 f"{want_rows})")
+    # the same seed in one process: what the two ranks compute
+    t1 = time.perf_counter()
+    reset_counts(flood)
+    s = train_cli.setup(argv + ["--run-name", "one-process"])
+    try:
+        step = learner.make_train_step(s.model, s.env, s.ncfg, s.tcfg, s.opt,
+                                       pool_blocks=2)
+        carry = s.carry
+        for it in range(1, DP_ITERS + 1):
+            s.cur = curriculum.update(s.tcfg, s.cur, it)
+            carry, _, _ = step(carry, s.cur.mode)
+        torch.cuda.synchronize()
+    finally:
+        train_cli.close_logger(s.log)
+    one_launches = counts(flood)
+    worst = 0.0
+    for k, want in s.model.state_dict().items():
+        got = lead["params"][k].to(want.device)
+        worst = max(worst, float((got - want).abs().max()
+                                 / want.abs().max().clamp_min(1e-30)))
+    if not worst <= DP_PARAM_RTOL:
+        raise AssertionError(f"dp-train: 2 ranks vs one process with "
+                             f"pool_blocks=2: parameters differ by {worst:.3g}"
+                             f" of their scale (bound {DP_PARAM_RTOL})")
+    sps = DP_ITERS * DP_ENVS * NUM_STEPS / lead["seconds"]
+    say("dp-train", t0, f"run/train.py as 2 gloo ranks on cuda:0, "
+        f"maze-lstm on {BENCH_ENV} at {DP_ENVS} envs, pool {DP_POOL}, "
+        f"{DP_ITERS} iterations and one eval of {DP_TEST_EPS} episodes in "
+        f"{t_ranks:.3f} s ({lead['seconds']:.3f} s in rank 0's main: "
+        f"{sps:.1f} env-steps/s, setup and eval included; two ranks share "
+        f"one card); digests {lead['digest']} = {other['digest']}; evals "
+        f"{lead['evals']} on both; rank 1 wrote {other['files']}; each "
+        f"rank's flood_sweep rows {lead['rows']}, launches "
+        f"{lead['launches']}; one process with pool_blocks=2 "
+        f"({time.perf_counter() - t1:.3f} s, launches {one_launches}): "
+        f"parameters within {worst:.3g} of their scale (bound "
+        f"{DP_PARAM_RTOL})")
+    return {k: lead["launches"][k] + other["launches"][k]
+            for k in lead["launches"]}
+
+
+def phase_scaling(scaling):
+    """parallel/scaling.py --dp 1 2: a row at dp 1, a skipped row at dp 2
+    (one card)."""
+    t0 = time.perf_counter()
+    out = scaling.main(["--dp", "1", "2", "--envs-per-device",
+                        str(SCALING_ENVS), "--iters", str(SCALING_ITERS),
+                        "--device", "cuda", "--timeout", str(DP_TIMEOUT)])
+    one, two = out["rows"]
+    if not (one["dp"] == 1 and one["weak_scaling_eff"] == 1.0
+            and np.isfinite(one["env_steps_per_s"])
+            and two == {"dp": 2, "skipped": "> 1 visible CUDA device(s)"}):
+        raise AssertionError(f"scaling: {out}")
+    launches = one["flood_launches"]
+    if launches["flood_sweep"] != 3 + SCALING_ITERS or \
+            sum(launches.values()) != launches["flood_sweep"]:
+        raise AssertionError(f"scaling: rank 0 launched {launches}")
+    say("scaling", t0, f"--dp 1 2 at {SCALING_ENVS} envs per device: dp 1 "
+        f"{one['env_steps_per_s']:.1f} env-steps/s (a step "
+        f"{one['step_s']:.4f} s, mean of {SCALING_ITERS}), dp 2 {two}; "
+        f"rank 0 launched {launches}")
+    return launches
+
+
+def phase_profile(torch, flood, profile_summary, tmp):
+    """run/profile_summary.py --capture on the card: a device trace whose
+    shares sum to 1."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    s = profile_summary.main(["--capture", "--trace-dir", str(tmp),
+                              "--top", "5"])
+    launches = counts(flood)
+    shares = s["categories"]
+    if s["mode"] != "device" or abs(sum(shares.values()) - 1) > 1e-3 \
+            or not s["top_ops"]:
+        raise AssertionError(f"profile: {s}")
+    # the pool and the initial carry flood; the captured steps reuse the pool
+    if launches["flood_sweep"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"profile launched {launches}")
+    tops = "; ".join(f"{o['name'][:70]} {o['ms']:.3f} ms x{o['count']} "
+                     f"({o['share']:.1%})" for o in s["top_ops"])
+    say("profile", t0, f"torch.profiler, 3 train steps of maze-lstm on "
+        f"{BENCH_ENV} at 4096 envs on a given pool (remat on): window "
+        f"{s['window_ms']:.3f} ms, device time {s['total_device_ms']:.3f} "
+        f"ms, busy {s['busy_ms']:.3f} ms; shares kernel "
+        f"{shares['kernel']:.4f}, memcpy {shares['memcpy']:.4f}, memset "
+        f"{shares['memset']:.4f}, idle {shares['idle']:.4f}; top 5: {tops}; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_demo(torch, flood, demo, run_dir, tmp):
+    """run/demo.py with cli-train's tracker and target, one Nav episode."""
+    t0 = time.perf_counter()
+    files = ["--device", "cuda", "--env", BENCH_ENV, "--load-tracker",
+             str(pathlib.Path(run_dir) / "tracker-best.msgpack"),
+             "--load-target", str(pathlib.Path(run_dir) / "target-best.msgpack")]
+    gif = pathlib.Path(tmp) / "demo.gif"
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+        try:
+            demo.main(files + ["--gif", str(gif)])
+        except ImportError as e:
+            case = f"no PIL here: --gif raised ({e}); ran with --gif ''"
+        else:
+            raise AssertionError("demo: --gif without PIL did not raise")
+    reset_counts(flood)
+    (frames, length, ret), = demo.main(
+        files + ["--gif", str(gif) if have_pil else ""])
+    torch.cuda.synchronize()
+    launches = counts(flood)
+    if have_pil:
+        if not gif.is_file():
+            raise AssertionError("demo wrote no GIF")
+        case = f"PIL here: wrote {gif.stat().st_size} bytes of GIF"
+    if len(frames) != length + 1 or launches["flood_sweep"] != 1 or \
+            sum(launches.values()) != 1:
+        raise AssertionError(f"demo: {len(frames)} frames for length "
+                             f"{length}, launches {launches}")
+    say("demo", t0, f"one greedy episode on {BENCH_ENV}: length {length}, "
+        f"tracker return {ret:.3f}, {len(frames)} frames; {case}; launches "
+        f"{launches}")
+    return launches
+
+
+def phase_parity(flood, parity, tmp):
+    """run/parity.py record, then verify on the card (exit 0); verify of a
+    copy with one observation changed exits 1."""
+    t0 = time.perf_counter()
+    golden = pathlib.Path(tmp) / "golden.npz"
+    reset_counts(flood)
+    parity.main(["record", "--env", BENCH_ENV, "--device", "cuda", "--out",
+                 str(golden)])
+    codes = []
+    try:
+        parity.main(["verify", "--golden", str(golden), "--device", "cuda"])
+    except SystemExit as e:
+        codes.append(e.code)
+    launches = counts(flood)
+    g = dict(np.load(golden))
+    g["obs"] = g["obs"].copy()
+    g["obs"][5, 0, 0, 0] ^= 1
+    bad = pathlib.Path(tmp) / "tampered.npz"
+    np.savez_compressed(bad, **g)
+    try:
+        parity.main(["verify", "--golden", str(bad), "--device", "cuda"])
+    except SystemExit as e:
+        codes.append(e.code)
+    if codes != [0, 1] or launches["flood_sweep"] != 4 or \
+            sum(launches.values()) != 4:
+        raise AssertionError(f"parity: exit codes {codes} (want [0, 1]), "
+                             f"launches {launches}")
+    say("parity", t0, f"record and verify of {len(g['actions'])} steps "
+        f"(2 episodes) on {BENCH_ENV} on the card: verify exit 0; a copy "
+        f"with one observation changed: exit 1; launches {launches}")
+    return launches
+
+
 def parse_args(argv):
     import argparse
     p = argparse.ArgumentParser(description="The port's smoke on one GPU; "
@@ -1611,9 +1981,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    # float32 means float32: no TF32 in matmuls or cuDNN convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32(torch)
     say("device", t_start, f"{torch.cuda.get_device_name(0)} | {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -1623,15 +1991,17 @@ def main(argv=None) -> int:
     from active_tracking_rl_torch.envs import maps
     from active_tracking_rl_torch.models import dueling
     from active_tracking_rl_torch.ops import flood
+    from active_tracking_rl_torch.parallel import scaling
     from active_tracking_rl_torch.rl import (checkpoint, curriculum,
                                              evaluate, host_loop, learner,
                                              optim)
     from active_tracking_rl_torch.run import eval as eval_cli
-    from active_tracking_rl_torch.run import eval_matrix, random_agent
+    from active_tracking_rl_torch.run import (demo, eval_matrix, parity,
+                                              profile_summary, random_agent)
     from active_tracking_rl_torch.run import train as train_cli
     from active_tracking_rl_torch.run import train_host
 
-    cpu_run = None
+    cpu_run = nccl_run = None
     try:
         phase_build(flood)
 
@@ -1674,16 +2044,27 @@ def main(argv=None) -> int:
                                                learner, optim, tmp / "nets")
             paths["host-train"] = phase_host_train(torch, flood, train_host,
                                                    tmp / "host")
-        paths["learn"] = phase_learn(torch, flood, tconfig, env_mod, learner,
-                                     dueling, evaluate)
-        paths["host-single"] = phase_host_single(
-            torch, flood, tconfig, dueling, bridge, host_loop)
-        paths["learn-continuous"] = phase_learn_continuous(
-            flood, tconfig, dueling, host_loop)
-        paths["learn-tat-continuous"] = phase_learn_tat_continuous(
-            torch, flood, tconfig, dueling, host_loop, cpu_run)
-        paths["random-agent"], paths["random-agent-episodes"] = \
-            phase_random_agent(torch, flood, random_agent)
+            paths["learn"] = phase_learn(torch, flood, tconfig, env_mod,
+                                         learner, dueling, evaluate)
+            paths["host-single"] = phase_host_single(
+                torch, flood, tconfig, dueling, bridge, host_loop)
+            paths["learn-continuous"] = phase_learn_continuous(
+                flood, tconfig, dueling, host_loop)
+            paths["learn-tat-continuous"] = phase_learn_tat_continuous(
+                torch, flood, tconfig, dueling, host_loop, cpu_run)
+            paths["random-agent"], paths["random-agent-episodes"] = \
+                phase_random_agent(torch, flood, random_agent)
+            paths["dp-train"] = phase_dp_train(torch, flood, train_cli,
+                                               learner, curriculum,
+                                               tmp / "dp")
+            nccl_run = start_dp_nccl()
+            paths["scaling"] = phase_scaling(scaling)
+            paths["dp-nccl"] = phase_dp_nccl(torch, flood, nccl_run)
+            paths["profile"] = phase_profile(torch, flood, profile_summary,
+                                             tmp / "profile")
+            paths["demo"] = phase_demo(torch, flood, demo, first.run_dir,
+                                       tmp)
+            paths["parity"] = phase_parity(flood, parity, tmp)
         # each kernel's launches on the path that runs it
         for name, path in (("flood_sweep", "main"),
                            ("flood_relax", "maze-main"),
@@ -1701,6 +2082,8 @@ def main(argv=None) -> int:
     finally:
         if cpu_run is not None:
             cpu_run[0].terminate()
+        if nccl_run is not None:
+            nccl_run[1].terminate()
     return 0
 
 

@@ -55,5 +55,7 @@ def test_port_and_smoke_import_no_jax():
                  "ops.flood", "rl.checkpoint", "run.train", "run.eval",
                  "run.eval_matrix", "utils.flax_msgpack", "utils.logging",
                  "utils.stats", "envs.bridge", "envs.render", "rl.host_loop",
-                 "run.train_host", "run.random_agent"):
+                 "run.train_host", "run.random_agent", "run.demo",
+                 "run.parity", "run.profile_summary", "parallel.mesh",
+                 "parallel.mp_check", "parallel.scaling", "utils.platform"):
         assert f"active_tracking_rl_torch.{name}" in out, name

@@ -1,7 +1,8 @@
 """The port's CLIs (active_tracking_rl_torch/run/) on the CPU, driven
 through their ``main``: the trainer's `--debug-nans` abort (mirrors
 tests/test_train_cli.py), ``check_finite_metrics``, flag parity with the
-JAX trainer's ``build_argparser``, the flags that still raise, and the
+JAX trainer's ``build_argparser``, the multi-process flags that cannot
+work, and the
 evaluation matrix's JSON with Wilson intervals.
 """
 
@@ -76,13 +77,16 @@ def test_check_finite_metrics_names_fields():
 
 def test_flags_match_the_jax_cli():
     """Every dest of the JAX trainer's parser, with its default; the port
-    adds only --device, and --split gains its --no-split negation."""
+    adds only --device and --dist-backend, and --split gains its
+    --no-split negation."""
     from active_tracking_rl_tpu.run.train import build_argparser as jparser
     jax_defaults = {a.dest: a.default for a in jparser()._actions}
     port = train_mod.build_argparser()
     port_defaults = {a.dest: a.default for a in port._actions}
-    assert set(port_defaults) - set(jax_defaults) == {"device"}
+    assert set(port_defaults) - set(jax_defaults) == {"device",
+                                                      "dist_backend"}
     assert port_defaults["device"] == "cuda"
+    assert port_defaults["dist_backend"] is None
     for dest, default in jax_defaults.items():
         assert dest in port_defaults, dest
         assert port_defaults[dest] == default, dest
@@ -97,11 +101,15 @@ def test_flags_match_the_jax_cli():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-processes", "2", "--process-id", "1"], "item 8"),
-    (["--coordinator", "localhost:1234"], "item 8"),
-    (["--local-devices", "4"], "item 8")])
+    (["--num-processes", "2", "--process-id", "1"], "needs --coordinator"),
+    (["--coordinator", "localhost:1234"], "needs --num-processes > 1"),
+    (["--local-devices", "4"], "no virtual devices")])
 def test_unported_features_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Multi-process training is ported; the flags that cannot work raise a
+    ValueError naming what is missing, before any rendezvous: ranks
+    without rank 0's address, an address for one process, and virtual
+    devices, which torch does not have."""
+    with pytest.raises(ValueError, match=item):
         train_mod.main(["--device", "cpu", "--env", RAM, "--env-base", RAM,
                         "--num-envs", "4", "--reset-pool", "4",
                         "--log-dir", str(tmp_path)] + flags)
