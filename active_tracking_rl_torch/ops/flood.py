@@ -35,6 +35,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -214,7 +215,7 @@ BFS_LIB = KernelLibrary("flood_bfs.cu")
 LIBRARIES = (BFS_LIB,)
 
 #: the process's one binding of each launcher, each with its own count;
-#: chip_smoke.py reads their `launches` to show which variant a path ran.
+#: chip_smoke.py reads them (`launches()`) to show which variant a path ran.
 FLOOD_SWEEP = FloodKernel("flood_sweep", BFS_LIB, "flood_sweep_launch", 0)
 FLOOD_SWEEP16 = FloodKernel("flood_sweep16", BFS_LIB, "flood_sweep16_launch",
                             0)
@@ -225,6 +226,11 @@ KERNELS = {"sweep": FLOOD_SWEEP, "sweep16": FLOOD_SWEEP16,
            "relax": FLOOD_RELAX}
 PLAIN = {"sweep": flood_fields_plain, "sweep16": flood_fields_plain,
          "relax": flood_fields_relax_plain}
+
+
+def launches() -> Dict[str, int]:
+    """Each launcher's count so far, by its name."""
+    return {k.name: k.launches for k in KERNELS.values()}
 
 
 def build_all() -> None:

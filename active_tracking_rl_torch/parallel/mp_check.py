@@ -39,6 +39,7 @@ from active_tracking_rl_torch.parallel.mesh import (Mesh, MeshSpec,
                                                     shutdown)
 from active_tracking_rl_torch.rl.learner import init_learner, make_train_step
 from active_tracking_rl_torch.utils.platform import (default_backend,
+                                                     pin_float32,
                                                      resolve_device)
 
 ENV_ID = "Track2D-EmptyPartialPZR-v0"
@@ -97,6 +98,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
+    pin_float32()
     if args.device == "cpu":
         torch.set_num_threads(1)
     device = resolve_device(args.device, args.process_id)

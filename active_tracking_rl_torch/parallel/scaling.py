@@ -94,8 +94,7 @@ def bench_step(args, mesh, device) -> dict:
         raise FloatingPointError(f"dp={mesh.world}: non-finite loss")
     row = {"dp": mesh.world, "num_envs": num_envs, "step_s": dt,
            "env_steps_per_s": num_envs * tcfg.num_steps / dt,
-           "flood_launches": {k.name: k.launches
-                              for k in flood.KERNELS.values()}}
+           "flood_launches": flood.launches()}
     if args.profile_dir:
         from active_tracking_rl_torch.run.profile_summary import \
             summarize_trace
@@ -118,7 +117,9 @@ def _worker(args) -> None:
     from active_tracking_rl_torch.parallel.mesh import (MeshSpec, host_init,
                                                         make_mesh, shutdown)
     from active_tracking_rl_torch.utils.platform import (default_backend,
+                                                         pin_float32,
                                                          resolve_device)
+    pin_float32()
     if torch.device(args.device).type == "cpu":
         torch.set_num_threads(1)
     device = resolve_device(args.device, args.process_id)

@@ -31,7 +31,8 @@ from active_tracking_rl_torch.envs.env import ResetDraws
 from active_tracking_rl_torch.envs.render import save_episode_gif
 from active_tracking_rl_torch.models.dueling import DuelingModel, build_model
 from active_tracking_rl_torch.rl.checkpoint import load_params
-from active_tracking_rl_torch.utils.platform import resolve_device
+from active_tracking_rl_torch.utils.platform import (pin_float32,
+                                                     resolve_device)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -83,6 +84,7 @@ def run_episode(model: DuelingModel, env: GymTrackEnv, net_cfg: NetConfig,
 def main(argv=None) -> List[Tuple[List[np.ndarray], int, float]]:
     """Runs the episodes; returns each one's (frames, length, return)."""
     args = build_argparser().parse_args(argv)
+    pin_float32()
     if args.gif:
         try:
             import PIL  # noqa: F401

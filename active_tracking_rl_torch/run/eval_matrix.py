@@ -26,6 +26,7 @@ from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.rl.evaluate import make_evaluator
+from active_tracking_rl_torch.utils.platform import pin_float32
 from active_tracking_rl_torch.utils.stats import wilson_ci
 
 PAPER_ENVS = [
@@ -62,6 +63,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    pin_float32()
     device = torch.device(args.device)
     trackers = dict(t.split("=", 1) for t in args.tracker)
     targets = dict(t.split("=", 1) for t in args.target)

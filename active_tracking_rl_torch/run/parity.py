@@ -43,7 +43,8 @@ import torch
 
 from active_tracking_rl_torch.config import parse_env_id
 from active_tracking_rl_torch.envs.env import ResetDraws, TrackEnv
-from active_tracking_rl_torch.utils.platform import resolve_device
+from active_tracking_rl_torch.utils.platform import (pin_float32,
+                                                     resolve_device)
 
 #: the repository root (the NumPy oracles, the gym shims)
 ROOT = Path(__file__).resolve().parents[2]
@@ -241,6 +242,7 @@ def main(argv=None):
                     help="the reference's gym-track2d checkout (the "
                          "envs/gym-track2d directory of its repository)")
     args = p.parse_args(argv)
+    pin_float32()
     if args.cmd == "record":
         record(args.env, args.seed, args.out, args.episodes, args.device)
     elif args.cmd == "verify":

@@ -173,8 +173,10 @@ def capture(num_envs: int, iters: int, env_id: str, network: str,
                                                      init_pool_ptr,
                                                      make_pool_fn,
                                                      make_train_step)
-    from active_tracking_rl_torch.utils.platform import resolve_device
+    from active_tracking_rl_torch.utils.platform import (pin_float32,
+                                                         resolve_device, sync)
 
+    pin_float32()
     dev = resolve_device(device)
     tcfg = TrainConfig(env_id=env_id, num_envs=num_envs,
                        reset_pool=max(num_envs // 8, 64), train_mode=0,
@@ -191,20 +193,16 @@ def capture(num_envs: int, iters: int, env_id: str, network: str,
     step = make_train_step(model, env, ncfg, tcfg, state.opt)
     carry = state.carry
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     for _ in range(2):
         carry, m, _ = step(carry, 0, pool)
-    sync()
+    sync(dev)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(iters):
             carry, m, _ = step(carry, 0, pool)
-        sync()
+        sync(dev)
     if not torch.isfinite(m.loss):
         raise FloatingPointError("non-finite loss in the captured steps")
     os.makedirs(out_dir, exist_ok=True)

@@ -28,6 +28,7 @@ from active_tracking_rl_torch.config import parse_env_id
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.envs.render import render_state, save_episode_gif
 from active_tracking_rl_torch.ops import noise
+from active_tracking_rl_torch.utils.platform import pin_float32
 
 #: env steps per timed block
 BLOCK_STEPS = 20
@@ -108,6 +109,7 @@ def run_fps(env: TrackEnv, n: int, seconds: float, seed: int) -> dict:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    pin_float32()
     env = TrackEnv(parse_env_id(args.env_id), args.device)
     if args.episodes:
         return run_episodes(env, args.episodes, args.seed, args.gif)

@@ -10,6 +10,11 @@ The port's counterpart of ``active_tracking_rl_tpu/utils/platform.py``.
   It never gives back the CPU in place of the card.
 * :func:`default_backend` names the ``torch.distributed`` backend of a
   device: ``nccl`` on CUDA, ``gloo`` on the CPU.
+* :func:`pin_float32` makes float32 mean IEEE float32 on the card: no
+  TF32 in cuBLAS matmuls or in cuDNN convolutions and RNNs. Every entry
+  point of the port calls it before it builds a model or an env, so what
+  users run is what the CPU parity tests hold to the JAX package's float32.
+  It is the only precision: the JAX package has no TF32 switch either.
 
 The JAX module's ``respect_jax_platforms`` and ``early_platform_setup`` have
 no torch meaning and no counterpart here: they re-pin a JAX platform that a
@@ -21,7 +26,7 @@ starts one process per device.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -63,6 +68,38 @@ def resolve_device(device, process_id: Optional[int] = None) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but only {count} "
                            f"CUDA device(s) are visible")
     return dev
+
+
+def pin_float32() -> Dict[str, object]:
+    """Turn TF32 off for matmuls and cuDNN convolutions (and RNNs); returns
+    the settings as read back.
+
+    The legacy ``allow_tf32`` flags are set first, then the
+    ``fp32_precision`` settings that torch reads now: in that order both
+    APIs read back the same state, and neither raises over a mix of the
+    two (torch refuses to read ``allow_tf32`` after only the new settings
+    were changed). Idempotent; it touches no device, so it runs on the CPU.
+    """
+    backends = torch.backends
+    backends.cuda.matmul.allow_tf32 = False
+    backends.cudnn.allow_tf32 = False
+    backends.cuda.matmul.fp32_precision = "ieee"
+    backends.cudnn.fp32_precision = "ieee"
+    backends.cudnn.conv.fp32_precision = "ieee"
+    backends.cudnn.rnn.fp32_precision = "ieee"
+    return {"matmul": backends.cuda.matmul.fp32_precision,
+            "cudnn.conv": backends.cudnn.conv.fp32_precision,
+            "cudnn.rnn": backends.cudnn.rnn.fp32_precision,
+            "matmul.allow_tf32": backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": backends.cudnn.allow_tf32}
+
+
+def sync(device) -> None:
+    """Wait for the work queued on `device` (a no-op off CUDA): the edge of
+    a timed window."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def default_backend(device) -> str:

@@ -11,7 +11,9 @@ adds each seed at train mode 0, where the aux head does not learn), each
 run in a spawned process, and prints every run and each device's summary.
 
 Phases (each prints one line with its seconds):
-  1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`;
+  1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`
+     and the float32 settings that utils/platform.py:pin_float32 leaves
+     (no TF32), the precision of every entry point of the port;
   2. build: compiles csrc/flood_bfs.cu, the one kernel source (its launchers
      flood_sweep, flood_sweep16 and flood_relax), with nvcc (plain C
      interface, ctypes); prints ptxas's registers, shared memory and spills
@@ -52,15 +54,20 @@ Phases (each prints one line with its seconds):
   5. main: Track2D-BlockPartialNav-v0 (flood_backend "auto": flood_sweep),
      maze-lstm at full width, train mode 0, 4096 envs, a reset pool of 512
      refreshed every iteration, 20 steps, remat off (TrainConfig's default;
-     maze-main and advat too): init_learner, one untimed warm-up
-     step, then 3 timed train steps; the loss must be finite, flood_sweep
-     must have been launched in the timed steps and flood_relax and
-     flood_sweep16 must not; prints their (warm)
-     env-steps/s, then the time of one reset pool, of its parts (map,
-     spawns, tape with its floods) and of one train step on a given pool;
+     maze-main and advat too), float32 without TF32, through
+     run/bench.py's build_bench and time_bench: init_learner, one untimed
+     warm-up step, then 3 timed train steps; the losses must be finite,
+     flood_sweep must have been launched in the timed steps (and as often
+     in the warm-up step) and flood_relax and flood_sweep16 must not;
+     prints their (warm) env-steps/s, then the time of one reset pool, of
+     its parts (map, spawns, tape with its floods; run/profile_iter.py's
+     pool_parts) and of one train step on a given pool;
   6. maze-main: the same on Track2D-MazePartialNav-v0 with flood_backend
      "pallas": flood_relax must be launched, flood_sweep and flood_sweep16
-     must not;
+     must not; then bench-flood: run/bench_flood.py at 64 rows x 16 goals
+     (1 warm-up and 2 timed calls of each backend on Block and Maze maps):
+     the "pallas" and "pallas_sweep" fields equal on 8 rows of each
+     (its sweep_equals_relax), and each kernel launched 8 times;
   7. advat: AD-VAT at full width, the advat-2d preset (tat-maze-lstm on
      Track2D-BlockPartialPZR-v0, static train mode -1, amsgrad Adam, target
      entropy 0.2) at 4096 envs, a pool of 512 refreshed every iteration, 20
@@ -256,6 +263,10 @@ DP_PARAM_RTOL = 1e-5
 DP_TIMEOUT = 300
 #: the scaling harness: envs per device, timed steps
 SCALING_ENVS, SCALING_ITERS = 1024, 3
+
+#: run/bench_flood.py's rows and timed calls in the smoke (its default:
+#: 512 rows, 5 calls)
+BENCH_FLOOD_ROWS, BENCH_FLOOD_ITERS = 64, 2
 
 SOURCES = {"flood_sweep": "active_tracking_rl_torch/csrc/flood_bfs.cu",
            "flood_sweep16": "active_tracking_rl_torch/csrc/flood_bfs.cu",
@@ -709,91 +720,99 @@ def reset_counts(flood) -> None:
         kernel.launches = 0
 
 
-def counts(flood) -> dict:
-    return {k.name: k.launches for k in flood.KERNELS.values()}
-
-
-def phase_main(torch, flood, tconfig, env_mod, learner, dueling, name,
-               ecfg, env_id, must_launch, must_not_launch):
-    """A trainer's path at full width; returns the timed steps' launches."""
+def phase_main(torch, flood, bench, profile_iter, learner, name, env_id,
+               flood_backend, must_launch, must_not_launch):
+    """A trainer's path at full width, timed through run/bench.py's loop;
+    returns the timed steps' launches."""
     t0 = time.perf_counter()
-    ncfg = tconfig.NetConfig.from_name("maze-lstm", aux="none")
-    tcfg = tconfig.TrainConfig(env_id=env_id, num_envs=NUM_ENVS,
-                               reset_pool=RESET_POOL, num_steps=NUM_STEPS,
-                               train_mode=0)
-    env = env_mod.TrackEnv(ecfg, "cuda")
-    model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
-                                device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state = learner.init_learner(model, env, ncfg, tcfg, gen)
-    step = learner.make_train_step(model, env, ncfg, tcfg, state.opt)
+    b = bench.build_bench(num_envs=NUM_ENVS, num_steps=NUM_STEPS,
+                          env_id=env_id, network="maze-lstm", train_mode=0,
+                          remat=False, device="cuda",
+                          flood_backend=flood_backend)
+    if b.tcfg.reset_pool != RESET_POOL:
+        raise AssertionError(f"{name}: bench's pool {b.tcfg.reset_pool}")
     torch.cuda.synchronize()
     say(f"{name}-init", t0, f"init_learner at {NUM_ENVS} envs, {env_id}, "
-        f"flood_backend {ecfg.flood_backend!r}")
+        f"flood_backend {b.env.cfg.flood_backend!r}")
 
     # one untimed step: the first at these shapes grows the allocator and
     # picks the cuDNN and cuBLAS algorithms
+    reset_counts(flood)
     tw = time.perf_counter()
-    carry, _, _ = step(state.carry, tcfg.train_mode)
+    b.iterate(0)
     torch.cuda.synchronize()
     say(f"{name}-warm-up", tw, "one train step, not timed")
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(flood)
-    t1 = time.perf_counter()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        carry, metrics, _ = step(carry, tcfg.train_mode)  # fresh pool each
-        losses.append(metrics.loss)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    launches = counts(flood)
-    losses = [x.item() for x in losses]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"{name}: non-finite loss {losses}")
+    res = bench.time_bench(b, TRAIN_STEPS, warmup=0)
+    launches, total = res.launches, flood.launches()
+    # the warm-up step launched what a timed step launches
+    if any(total[k] * TRAIN_STEPS != launches[k] * (TRAIN_STEPS + 1)
+           for k in total):
+        raise AssertionError(f"{name}: {total} launched in all, "
+                             f"{launches} in the timed steps")
+    if res.iters != TRAIN_STEPS or not all(np.isfinite(res.losses)):
+        raise AssertionError(f"{name}: {res.iters} steps, losses "
+                             f"{res.losses}")
     if launches[must_launch] == 0:
         raise AssertionError(f"{name} never launched {must_launch}")
     for other in must_not_launch:
         if launches[other] != 0:
             raise AssertionError(f"{name} launched {other} "
                                  f"{launches[other]} times")
-    sps = TRAIN_STEPS * NUM_ENVS * NUM_STEPS / dt
-    say(name, t0, f"{TRAIN_STEPS} train steps in {dt:.3f} s: {sps:.1f} "
-        f"env-steps/s; launches {launches} "
+    if (res.remat, res.precision) != (False, "fp32"):
+        raise AssertionError(f"{name} ran remat {res.remat}, "
+                             f"{res.precision}")
+    say(name, t0, f"{TRAIN_STEPS} train steps (run/bench.py, remat off, "
+        f"{res.precision}) in {res.seconds:.3f} s: "
+        f"{res.env_steps_per_s:.1f} env-steps/s; launches {launches} "
         f"({launches[must_launch] / TRAIN_STEPS:g} {must_launch} per "
-        f"iteration); losses {losses}; "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"iteration); losses {res.losses}; "
+        f"peak {res.peak_bytes / 2**30:.2f} GiB")
 
     # where an iteration's time goes: the pool, then a step on that pool
-    pool_fn = learner.make_pool_fn(env, tcfg)
+    pool_fn = learner.make_pool_fn(b.env, b.tcfg)
     t2 = time.perf_counter()
-    pool = pool_fn(gen)
+    pool = pool_fn(b.generator)
     torch.cuda.synchronize()
     say(f"{name}-pool", t2, f"one reset pool of {RESET_POOL} rows "
         "(map, spawns, floods, 512-tick tapes)")
-    # the pool's parts, in reset's order, on fresh draws
-    draws = env.draw_reset(RESET_POOL, gen)
-    parts = {}
-    t_parts = t3 = time.perf_counter()
-    maze = env_mod.maps.generate_map(ecfg, draws.map)
-    torch.cuda.synchronize()
-    parts["map"] = time.perf_counter() - t3
+    # the pool's parts, in reset's order, on fresh draws (run/profile_iter.py)
     t3 = time.perf_counter()
-    pos, goals = env_mod.maps.sample_spawns(ecfg, maze, draws.spawns)
-    torch.cuda.synchronize()
-    parts["spawns"] = time.perf_counter() - t3
+    parts = profile_iter.pool_parts(b.env, RESET_POOL, b.generator, iters=1,
+                                    warmup=0)
+    say(f"{name}-pool-parts", t3, "; ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items()) + " (tape: floods, "
+        "512 ticks)")
     t3 = time.perf_counter()
-    env_mod.build_tape(ecfg, maze, pos[:, 1], goals[:, 1], draws.nav,
-                       draws.ram)
-    torch.cuda.synchronize()
-    parts["tape (floods, 512 ticks)"] = time.perf_counter() - t3
-    say(f"{name}-pool-parts", t_parts, "; ".join(
-        f"{k} {v:.3f} s" for k, v in parts.items()))
-    t3 = time.perf_counter()
-    step(carry, tcfg.train_mode, (*pool, learner.init_pool_ptr(device="cuda")))
+    b.train_step(b.carry, b.mode, (*pool, learner.init_pool_ptr(device="cuda")))
     torch.cuda.synchronize()
     say(f"{name}-step", t3, "one train step on that pool (rollout, loss, "
         "backward, SharedAdam)")
+    return launches
+
+
+def phase_bench_flood(torch, flood, bench_flood):
+    """run/bench_flood.py at BENCH_FLOOD_ROWS rows: every backend's time on
+    Block and Maze maps; both kernels' fields must be equal."""
+    t0 = time.perf_counter()
+    reset_counts(flood)
+    out = bench_flood.bench_flood(rows=BENCH_FLOOD_ROWS, device="cuda",
+                                  iters=BENCH_FLOOD_ITERS, warmup=1)
+    launches = flood.launches()
+    keys = {f"{m}PartialNav_{b}" for m in ("Block", "Maze")
+            for b in ("xla_s", "pallas_s", "pallas_sweep_s",
+                      "sweep_equals_relax")}
+    if set(out) != keys or not all(out[f"{m}PartialNav_sweep_equals_relax"]
+                                   is True for m in ("Block", "Maze")):
+        raise AssertionError(f"bench-flood: {out}")
+    # per map family: (warmup + iters) calls of each kernel backend, and
+    # the check's one call of each
+    per = 2 * (1 + BENCH_FLOOD_ITERS + 1)
+    if launches != {"flood_sweep": per, "flood_sweep16": 0,
+                    "flood_relax": per}:
+        raise AssertionError(f"bench-flood launched {launches}")
+    say("bench-flood", t0, f"{BENCH_FLOOD_ROWS} rows x 16 goals: " + "; ".join(
+        f"{k} {v * 1e3:.3f} ms" if isinstance(v, float) else f"{k} {v}"
+        for k, v in out.items()) + f"; launches {launches}")
     return launches
 
 
@@ -841,7 +860,7 @@ def phase_advat(torch, flood, tconfig, env_mod, learner, dueling,
         secs.append(time.perf_counter() - t1)
         modes.append(cur.mode)
         metrics.append(m)
-    launches = counts(flood)
+    launches = flood.launches()
     if sum(launches.values()) != 0:
         raise AssertionError(f"advat launched flood kernels: {launches}")
     if modes[0] != 0 or modes[-1] != -1:
@@ -892,7 +911,7 @@ def phase_advat_eval(torch, flood, tconfig, env_mod, evaluate, model, ncfg,
     reset_counts(flood)
     out = evaluate.evaluate(model, env, ncfg, gen, EVAL_EPISODES, EVAL_STEPS)
     dt = time.perf_counter() - t0
-    launches = counts(flood)
+    launches = flood.launches()
     if launches["flood_sweep"] == 0 or sum(launches.values()) \
             != launches["flood_sweep"]:
         raise AssertionError(f"advat-eval launched {launches}")
@@ -918,7 +937,7 @@ def phase_sweep16_entry(torch, flood, mz, goals):
     reset_counts(flood)
     out = flood.flood_fields(mz, goals, iters, "sweep16")
     torch.cuda.synchronize()
-    launches = counts(flood)
+    launches = flood.launches()
     if launches["flood_sweep16"] != 1 or sum(launches.values()) != 1:
         raise AssertionError(f"sweep16 entry launched {launches}")
     if out.shape != (*goals.shape[:2], *mz.shape[1:]):
@@ -970,7 +989,7 @@ def phase_cli_train(torch, flood, train_cli, tmp):
     s = train_cli.main(CLI_TRAIN_FLAGS + ["--log-dir", str(tmp)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = counts(flood)
+    launches = flood.launches()
     tcfg, ncfg = s.tcfg, s.ncfg
     if (tcfg.env_id, tcfg.env_base, ncfg.name, tcfg.train_mode,
             tcfg.remat) != ("Track2D-BlockPartialPZR-v0",
@@ -1038,7 +1057,7 @@ def phase_cli_resume(torch, flood, train_cli, checkpoint, first, tmp):
     finally:
         train_cli.close_logger(s.log)
     torch.cuda.synchronize()
-    launches = counts(flood)
+    launches = flood.launches()
     with open(pathlib.Path(s.run_dir) / "ckpt_meta.json") as f:
         meta = json.load(f)
     if meta["n_iter"] != 8 or launches["flood_sweep"] != 1 \
@@ -1094,7 +1113,7 @@ def phase_cli_eval(torch, flood, tconfig, env_mod, dueling, evaluate,
     if json.loads(out.read_text())[env_id]["smoke"]["S_ci95"] != \
             row["S_ci95"] or row["episodes"] != 2 * EVAL_EPISODES:
         raise AssertionError(f"eval_matrix wrote {row}")
-    launches = counts(flood)
+    launches = flood.launches()
     if launches["flood_sweep"] != 4 or sum(launches.values()) != 4:
         raise AssertionError(f"cli-eval launched {launches}")
     say("cli-eval", t1, f"run/eval_matrix.py, 2 seeds x {EVAL_EPISODES} "
@@ -1141,7 +1160,7 @@ def phase_cli_nets(torch, flood, train_cli, learner, optim, tmp):
             f"mode {s.tcfg.train_mode}: 2 iterations at {s.tcfg.num_envs} "
             f"envs, losses finite (--debug-nans), loss at iteration 1 "
             f"{float(s.last_metrics['loss']):.6f}; {ev[-1]}")
-    launches = counts(flood)
+    launches = flood.launches()
 
     # the last run's (tat-maze-lstm, --no-remat) state
     t2 = time.perf_counter()
@@ -1200,7 +1219,7 @@ def phase_learn(torch, flood, tconfig, env_mod, learner, dueling, evaluate):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     after = ev(torch.Generator(device="cuda").manual_seed(42))
-    launches = counts(flood)
+    launches = flood.launches()
     r0, r1 = float(before["R_mean"][0]), float(after["R_mean"][0])
     l0, l1 = float(before["EL_mean"]), float(after["EL_mean"])
     if not (np.isfinite(m.loss.item()) and r1 > r0 + 30 and l1 > l0 + 20):
@@ -1380,7 +1399,7 @@ def phase_host_train(torch, flood, train_host, tmp):
                                               "--log-dir", str(tmp)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = counts(flood)
+    launches = flood.launches()
     resets = run.trainer.pool.resets
     loss = float(run.last_metrics["loss"])
     if not np.isfinite(loss):
@@ -1447,7 +1466,7 @@ def phase_host_single(torch, flood, tconfig, dueling, bridge, host_loop):
     say("host-single", t0, f"maze-lstm single on 3 toy envs, 3 x 6 steps: "
         f"episodes {[int(x) for x in tr.finished_lens]}, loss "
         f"{m.loss.item():.6f}")
-    return counts(flood)
+    return flood.launches()
 
 
 def _learn_direction(tconfig, dueling, host_loop, tat, seed, device="cuda",
@@ -1508,7 +1527,7 @@ def phase_learn_continuous(flood, tconfig, dueling, host_loop):
     if not (len(rets) > 30 and late > early + 2.0 and late > 4.0):
         raise AssertionError(f"learn-continuous: {msg}")
     say("learn-continuous", t0, msg)
-    return counts(flood)
+    return flood.launches()
 
 
 def _learn_tat_run(job):
@@ -1517,7 +1536,7 @@ def _learn_tat_run(job):
     the CPU. Returns its returns, pred_losses and flood launches."""
     device, seed, mode = job
     import torch
-    _no_tf32(torch)
+    _no_tf32()
     if device == "cpu":
         torch.set_num_threads(1)
     from active_tracking_rl_torch import config as tconfig
@@ -1527,7 +1546,7 @@ def _learn_tat_run(job):
     reset_counts(flood)
     rets, preds = _learn_direction(tconfig, dueling, host_loop, True, seed,
                                    device, mode)
-    return rets, preds, counts(flood)
+    return rets, preds, flood.launches()
 
 
 def start_tat_cpu_run():
@@ -1553,7 +1572,7 @@ def phase_learn_tat_continuous(torch, flood, tconfig, dueling, host_loop,
     card = _learn_direction(tconfig, dueling, host_loop, True,
                             LEARN_TAT_SEED)
     torch.cuda.synchronize()
-    launches = counts(flood)
+    launches = flood.launches()
     dt = time.perf_counter() - t0
     pool, pending = cpu_run
     c_rets, c_preds, c_launches = pending.get(timeout=900)
@@ -1634,7 +1653,7 @@ def phase_random_agent(torch, flood, random_agent):
     out = random_agent.main(["-e", BENCH_ENV, "--num-envs",
                              str(RANDOM_AGENT_ENVS), "--seconds",
                              str(RANDOM_AGENT_SECONDS), "--device", "cuda"])
-    fps_launches = counts(flood)
+    fps_launches = flood.launches()
     if fps_launches["flood_sweep"] < 1 or sum(fps_launches.values()) != \
             fps_launches["flood_sweep"]:
         raise AssertionError(f"random-agent launched {fps_launches}")
@@ -1646,7 +1665,7 @@ def phase_random_agent(torch, flood, random_agent):
     reset_counts(flood)
     eps = random_agent.main(["-e", BENCH_ENV, "--episodes", "1",
                              "--device", "cuda"])
-    ep_launches = counts(flood)
+    ep_launches = flood.launches()
     if ep_launches["flood_sweep"] != 1 or sum(ep_launches.values()) != 1:
         raise AssertionError(f"random-agent --episodes 1 launched "
                              f"{ep_launches}")
@@ -1655,25 +1674,25 @@ def phase_random_agent(torch, flood, random_agent):
     return fps_launches, ep_launches
 
 
-def _no_tf32(torch):
-    """float32 means float32: no TF32 in matmuls or cuDNN convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _no_tf32():
+    """float32 means float32: no TF32 in matmuls or cuDNN convolutions, as
+    every entry point of the port pins it (utils/platform.py:pin_float32).
+    Returns the state as read back."""
+    from active_tracking_rl_torch.utils.platform import pin_float32
+    return pin_float32()
 
 
 def _mp_check_rank(port):
     """dp-nccl's rank, in a process of its own: parallel/mp_check.py as a
     group of one over nccl on cuda:0. Returns its line's fields and its
-    flood launches."""
-    import torch
-    _no_tf32(torch)
+    flood launches (mp_check.main pins float32 itself)."""
     from active_tracking_rl_torch.ops import flood
     from active_tracking_rl_torch.parallel import mp_check
     out = mp_check.main(["--coordinator", f"127.0.0.1:{port}",
                          "--num-processes", "1", "--process-id", "0",
                          "--device", "cuda", "--dist-backend", "nccl",
                          "--timeout", str(DP_TIMEOUT)])
-    return out, counts(flood)
+    return out, flood.launches()
 
 
 def start_dp_nccl():
@@ -1730,14 +1749,13 @@ def _dp_train_rank(rank, port, argv):
     """One rank of dp-train in a process of its own: run/train.py:main as
     rank `rank` of 2 over gloo on cuda:0. Returns its run dir, files, eval
     lines, parameters (on the host), flood launches and their row counts,
-    and its seconds."""
+    and its seconds (run/train.py pins float32 itself)."""
     import torch
-    _no_tf32(torch)
     from active_tracking_rl_torch.ops import flood
     from active_tracking_rl_torch.parallel import mp_check
     from active_tracking_rl_torch.run import train as train_cli
-    log = flood.KERNELS["sweep"] = _RowLog(flood.KERNELS["sweep"])
     reset_counts(flood)
+    log = flood.KERNELS["sweep"] = _RowLog(flood.KERNELS["sweep"])
     t0 = time.perf_counter()
     s = train_cli.main(argv + ["--coordinator", f"127.0.0.1:{port}",
                                "--num-processes", "2", "--process-id",
@@ -1803,7 +1821,7 @@ def phase_dp_train(torch, flood, train_cli, learner, curriculum, tmp):
         torch.cuda.synchronize()
     finally:
         train_cli.close_logger(s.log)
-    one_launches = counts(flood)
+    one_launches = flood.launches()
     worst = 0.0
     for k, want in s.model.state_dict().items():
         got = lead["params"][k].to(want.device)
@@ -1860,7 +1878,7 @@ def phase_profile(torch, flood, profile_summary, tmp):
     reset_counts(flood)
     s = profile_summary.main(["--capture", "--trace-dir", str(tmp),
                               "--top", "5"])
-    launches = counts(flood)
+    launches = flood.launches()
     shares = s["categories"]
     if s["mode"] != "device" or abs(sum(shares.values()) - 1) > 1e-3 \
             or not s["top_ops"]:
@@ -1902,7 +1920,7 @@ def phase_demo(torch, flood, demo, run_dir, tmp):
     (frames, length, ret), = demo.main(
         files + ["--gif", str(gif) if have_pil else ""])
     torch.cuda.synchronize()
-    launches = counts(flood)
+    launches = flood.launches()
     if have_pil:
         if not gif.is_file():
             raise AssertionError("demo wrote no GIF")
@@ -1930,7 +1948,7 @@ def phase_parity(flood, parity, tmp):
         parity.main(["verify", "--golden", str(golden), "--device", "cuda"])
     except SystemExit as e:
         codes.append(e.code)
-    launches = counts(flood)
+    launches = flood.launches()
     g = dict(np.load(golden))
     g["obs"] = g["obs"].copy()
     g["obs"][5, 0, 0, 0] ^= 1
@@ -1981,9 +1999,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    _no_tf32(torch)
+    precision = _no_tf32()
     say("device", t_start, f"{torch.cuda.get_device_name(0)} | {smi} | "
-        f"torch {torch.__version__} cuda {torch.version.cuda}")
+        f"torch {torch.__version__} cuda {torch.version.cuda} | float32 "
+        f"{precision}")
 
     from active_tracking_rl_torch import config as tconfig
     from active_tracking_rl_torch.envs import bridge
@@ -1996,8 +2015,10 @@ def main(argv=None) -> int:
                                              evaluate, host_loop, learner,
                                              optim)
     from active_tracking_rl_torch.run import eval as eval_cli
-    from active_tracking_rl_torch.run import (demo, eval_matrix, parity,
-                                              profile_summary, random_agent)
+    from active_tracking_rl_torch.run import (bench, bench_flood, demo,
+                                              eval_matrix, parity,
+                                              profile_iter, profile_summary,
+                                              random_agent)
     from active_tracking_rl_torch.run import train as train_cli
     from active_tracking_rl_torch.run import train_host
 
@@ -2014,14 +2035,13 @@ def main(argv=None) -> int:
                              host_loop, torch.Generator().manual_seed(1))
         paths = {}
         paths["main"] = phase_main(
-            torch, flood, tconfig, env_mod, learner, dueling, "main",
-            tconfig.parse_env_id(BENCH_ENV), BENCH_ENV, "flood_sweep",
-            ("flood_relax", "flood_sweep16"))
+            torch, flood, bench, profile_iter, learner, "main", BENCH_ENV,
+            None, "flood_sweep", ("flood_relax", "flood_sweep16"))
         paths["maze-main"] = phase_main(
-            torch, flood, tconfig, env_mod, learner, dueling, "maze-main",
-            dataclasses.replace(tconfig.parse_env_id(MAZE_ENV),
-                                flood_backend="pallas"),
-            MAZE_ENV, "flood_relax", ("flood_sweep", "flood_sweep16"))
+            torch, flood, bench, profile_iter, learner, "maze-main",
+            MAZE_ENV, "pallas", "flood_relax",
+            ("flood_sweep", "flood_sweep16"))
+        paths["bench-flood"] = phase_bench_flood(torch, flood, bench_flood)
         model, ncfg, tcfg, paths["advat"] = phase_advat(
             torch, flood, tconfig, env_mod, learner, dueling, curriculum)
         paths["advat-eval"] = phase_advat_eval(

@@ -57,5 +57,6 @@ def test_port_and_smoke_import_no_jax():
                  "utils.stats", "envs.bridge", "envs.render", "rl.host_loop",
                  "run.train_host", "run.random_agent", "run.demo",
                  "run.parity", "run.profile_summary", "parallel.mesh",
-                 "parallel.mp_check", "parallel.scaling", "utils.platform"):
+                 "parallel.mp_check", "parallel.scaling", "utils.platform",
+                 "run.bench", "run.profile_iter", "run.bench_flood"):
         assert f"active_tracking_rl_torch.{name}" in out, name

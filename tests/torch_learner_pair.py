@@ -1,6 +1,8 @@
-"""One train step of the JAX package and of the port from the same params,
-carry, reset pool and sampling noise, for any discrete network, optimizer
-and frame stack: the harness of the learner parity tests.
+"""Train steps of the JAX package and of the port from the same params,
+carry, reset pool and sampling noise, for any discrete network, optimizer,
+frame stack and static train mode, one step (``run_pair``) or several at
+given loss modes in turn (``run_steps``): the harness of the learner parity
+tests.
 
 The port takes its sampling noise as tensors; ``step_noise`` re-derives it
 from the keys that the JAX step splits, so both sample the same actions.
@@ -47,6 +49,15 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
     """Both packages' step from one state -> dict(jax=(params', grads,
     carry', metrics, ptr'), torch=(state_dict', grads, carry', metrics,
     ptr'))."""
+    return run_steps(env_id, network, (train_mode,), optimizer, stack,
+                     train_mode, aux)[0]
+
+
+def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
+              stack: int = 1, train_mode: int = 0, aux: str = "reward"):
+    """Both packages' steps at the loss modes `modes` in turn, from one
+    state and on one reset pool (its pointer threaded through), under a
+    static `train_mode` -> per step, run_pair's dict."""
     ecfg = dataclasses.replace(parse_env_id(env_id), **FAST)
     jenv = JaxEnv(ecfg)
     jt = JTrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
@@ -62,9 +73,6 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
     hx = jnp.zeros((B, 2, jn.rnn_out), jnp.float32)
     carry = JCarry(state, stack_obs, hx, hx, jax.random.PRNGKey(3))
     step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
-    p1, (_, grads), c1, m1, ptr1 = step(
-        params, opt.init(params), carry, jnp.int32(train_mode),
-        (pool_state, pool_obs, jnp.int32(0)))
 
     tc = torch_cfg(ecfg)
     env = TrackEnv(tc, "cpu")
@@ -78,16 +86,26 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
                         torch.from_numpy(np.array(stack_obs)),
                         torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
                         torch.Generator().manual_seed(0))
+    tpool = (torch_state(pool_state), torch.from_numpy(np.array(pool_obs)))
     ts = make_train_step(model, env, tn, tt, topt)
-    tc1, tm1, tptr1 = ts(tcarry, train_mode,
-                         (torch_state(pool_state),
-                          torch.from_numpy(np.array(pool_obs)),
-                          init_pool_ptr(device="cpu")),
-                         step_noise(carry.key, T, B, tc.num_actions))
-    tgrads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-              for n, p in model.named_parameters()}
-    return dict(jax=(_host(p1), _host(grads), c1, m1, ptr1),
-                torch=(model.state_dict(), tgrads, tc1, tm1, tptr1))
+
+    opt_state, ptr = opt.init(params), jnp.int32(0)
+    tptr = init_pool_ptr(device="cpu")
+    runs = []
+    for mode in modes:
+        noise = step_noise(carry.key, T, B, tc.num_actions)
+        params, opt_state, carry, m, ptr = step(
+            params, opt_state, carry, jnp.int32(mode),
+            (pool_state, pool_obs, ptr))
+        tcarry, tm, tptr = ts(tcarry, mode, (*tpool, tptr), noise)
+        tgrads = {n: (p.grad.clone() if p.grad is not None
+                      else torch.zeros_like(p))
+                  for n, p in model.named_parameters()}
+        runs.append(dict(
+            jax=(_host(params), _host(opt_state[1]), carry, m, ptr),
+            torch=({k: v.clone() for k, v in model.state_dict().items()},
+                   tgrads, tcarry, tm, tptr)))
+    return runs
 
 
 def assert_pair_close(res, param_tol) -> None:
