@@ -117,8 +117,9 @@ class NetConfig:
     rnn_out: int = 128
     stack_frames: int = 1
     aux_reward: bool = True
-    #: bfloat16 inputs to the encoder's convs and fc and the cell's matmuls
-    #: (parameters, heads and the recurrent state stay float32).
+    #: the encoder in bfloat16 (features cast back to float32) and the
+    #: cell's matmuls on bfloat16 inputs; parameters, heads and the
+    #: recurrent state stay float32.
     bf16: bool = False
 
     @classmethod

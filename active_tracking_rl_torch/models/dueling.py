@@ -16,9 +16,9 @@ A-dim action itself, not a one-hot. A single-player model
 (``DuelingModel(single=True)``, for host envs with one agent) has no
 ``player1``.
 
-With ``NetConfig.bf16`` the encoder's convs and fc and the cell's matmuls
-take bfloat16 inputs; parameters, heads and the recurrent state stay
-float32.
+With ``NetConfig.bf16`` the encoder computes in bfloat16 (flax's
+``dtype``: bias adds and relus too) and the cell's matmuls take bfloat16
+inputs; parameters, heads, features and the recurrent state stay float32.
 
 ``params_from_flax`` converts the JAX package's params (flax tree of numpy
 arrays) into this module's ``state_dict``: Dense kernels are (in, out) and

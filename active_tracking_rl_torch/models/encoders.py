@@ -7,10 +7,11 @@ fc). Inside, convolutions run NCHW; the conv output is put back to NHWC
 before the flatten, so the features are in the JAX package's (k, H', W', C)
 order and a flax Dense kernel converts by a transpose alone.
 
-With ``bf16`` each conv and the fc take bfloat16 inputs and weights; their
-results go back to float32 before the bias add. An input too small for the
-conv stack (CNNSimple on a 13 x 13 partial window) gives empty features
-(B, 0), as the JAX module does.
+With ``bf16`` the encoder computes in bfloat16, as flax's ``dtype`` does:
+each conv and the fc take bfloat16 inputs, weights and biases, their bias
+adds, pools and relus stay in bfloat16, and only the features go back to
+float32. An input too small for the conv stack (CNNSimple on a 13 x 13
+partial window) gives empty features (B, 0), as the JAX module does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from active_tracking_rl_torch.models.init import init_conv_, init_linear_
-from active_tracking_rl_torch.models.recurrent import matmul
 
 
 def _conv_out(n: int, kernel: int, stride: int, padding: int) -> int:
@@ -30,11 +30,22 @@ def _conv_out(n: int, kernel: int, stride: int, padding: int) -> int:
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The conv, or under `bf16` its bfloat16 output plus the bfloat16 bias:
+    two roundings, as flax's bf16 conv (the bias is not fused into it)."""
     if not bf16:
         return conv(x)
-    y = F.conv2d(x.to(torch.bfloat16), conv.weight.to(torch.bfloat16), None,
-                 conv.stride, conv.padding)
-    return y.to(torch.float32) + conv.bias[:, None, None]
+    b16 = torch.bfloat16
+    y = F.conv2d(x.to(b16), conv.weight.to(b16), None, conv.stride,
+                 conv.padding)
+    return y + conv.bias.to(b16)[:, None, None]
+
+
+def _fc(fc: nn.Linear, x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The fc, or under `bf16` its bfloat16 product plus the bfloat16 bias."""
+    if not bf16:
+        return fc(x)
+    b16 = torch.bfloat16
+    return x.to(b16) @ fc.weight.to(b16).t() + fc.bias.to(b16)
 
 
 class _StackedConvEncoder(nn.Module):
@@ -89,11 +100,9 @@ class _StackedConvEncoder(nn.Module):
                     x = F.max_pool2d(x, 2)
                 x = torch.relu(x)
             x = x.permute(0, 2, 3, 1).reshape(b, -1)
-        if self.fc is None:
-            return x
-        if self.bf16:
-            return torch.relu(matmul(x, self.fc.weight, True) + self.fc.bias)
-        return torch.relu(self.fc(x))
+        if self.fc is not None:
+            x = torch.relu(_fc(self.fc, x, self.bf16))
+        return x.to(torch.float32)
 
 
 class CNNMaze(_StackedConvEncoder):

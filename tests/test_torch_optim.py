@@ -97,6 +97,58 @@ def test_idle_player_steps_as_in_jax(modes):
         _assert_close(params, state, f"step {i} (mode {modes[i]})")
 
 
+def test_idle_player_after_the_curriculum_warmup():
+    """AD-VAT's curriculum (init_step 1000): player1 idles for 999 steps,
+    then learns under a step count of 1000, so its first updates carry
+    that count's bias corrections. Its parameters stay put through the
+    warm-up and then follow JAX's (jitted update, to keep the test short).
+    Player0 is not compared: after a thousand float32 updates a near-zero
+    entry drifts past TOL's atol from the order of the clip-norm's sum
+    alone. Player1 to rtol 1e-6 / atol 1e-8: its near-zero entries move by
+    a step size and a clip factor whose float32 roundings may differ by an
+    ulp, and 1e-8 is about one float32 ulp at the parameters' 0.1 scale."""
+    ecfg = parse_env_id(ENV_ID)
+    jn = JNetConfig.from_name("maze-lstm", aux="none")
+    jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    opt = j_opt_for(jn, JTrainConfig(env_id=ENV_ID, train_mode=-1), params)
+    opt_state = opt.init(params)
+
+    @jax.jit
+    def jstep(grads, opt_state, params):
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    model = build_model(NetConfig.from_name("maze-lstm", aux="none"),
+                        ecfg.num_actions, ecfg.obs_shape, device="cpu")
+    model.load_state_dict(params_from_flax(params))
+    topt = make_optimizer_for(model, TrainConfig(env_id=ENV_ID,
+                                                 train_mode=-1))
+    named = dict(model.named_parameters())
+    start = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith("player1")}
+    warmup = 999
+    for step, mode in enumerate([0] * warmup + [-1] * 3):
+        grads, idle = _grads(params, mode, step)
+        params, opt_state = jstep(grads, opt_state, params)
+        for name, g in params_from_flax(grads).items():
+            named[name].grad = None if name.split(".")[0] in idle else g
+        topt.step()
+        if step == warmup - 1:
+            assert all(torch.equal(named[k].detach(), v)
+                       for k, v in start.items())
+        if step < warmup:
+            continue
+        assert topt.param_groups[0]["step"] == step + 1
+        want = params_from_flax(jax.tree_util.tree_map(np.asarray, params))
+        for name, w in want.items():
+            if name.startswith("player1"):
+                np.testing.assert_allclose(named[name].detach().numpy(),
+                                           w.numpy(), rtol=1e-6, atol=1e-8,
+                                           err_msg=f"step {step}: {name}")
+                assert not torch.equal(named[name].detach(), start[name])
+
+
 def test_shared_step_count_advances_for_every_parameter():
     ecfg = parse_env_id(ENV_ID)
     model = build_model(NetConfig.from_name("maze-lstm", aux="none"),

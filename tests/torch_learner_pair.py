@@ -1,8 +1,8 @@
 """Train steps of the JAX package and of the port from the same params,
 carry, reset pool and sampling noise, for any discrete network, optimizer,
 frame stack and static train mode, one step (``run_pair``) or several at
-given loss modes in turn (``run_steps``): the harness of the learner parity
-tests.
+given loss modes in turn (``run_steps``, which also takes ``bf16``): the
+harness of the learner parity tests.
 
 The port takes its sampling noise as tensors; ``step_noise`` re-derives it
 from the keys that the JAX step splits, so both sample the same actions.
@@ -54,15 +54,18 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
 
 
 def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
-              stack: int = 1, train_mode: int = 0, aux: str = "reward"):
+              stack: int = 1, train_mode: int = 0, aux: str = "reward",
+              bf16: bool = False):
     """Both packages' steps at the loss modes `modes` in turn, from one
     state and on one reset pool (its pointer threaded through), under a
-    static `train_mode` -> per step, run_pair's dict."""
+    static `train_mode`, with ``NetConfig.bf16`` = `bf16` in both -> per
+    step, run_pair's dict."""
     ecfg = dataclasses.replace(parse_env_id(env_id), **FAST)
     jenv = JaxEnv(ecfg)
     jt = JTrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
                       train_mode=train_mode, optimizer=optimizer)
-    jn = JNetConfig.from_name(network, stack_frames=stack, aux=aux)
+    jn = dataclasses.replace(
+        JNetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
     jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
     params = jm.init(jax.random.PRNGKey(0))
     opt = capture_grads(j_opt_for(jn, jt, params))
@@ -78,7 +81,8 @@ def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
     env = TrackEnv(tc, "cpu")
     tt = TrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
                      train_mode=train_mode, optimizer=optimizer)
-    tn = NetConfig.from_name(network, stack_frames=stack, aux=aux)
+    tn = dataclasses.replace(
+        NetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
     model = build_model(tn, tc.num_actions, tc.obs_shape, device="cpu")
     model.load_state_dict(params_from_flax(_host(params)))
     topt = make_optimizer_for(model, tt)
