@@ -2,7 +2,8 @@
 carry, reset pool and sampling noise, for any discrete network, optimizer,
 frame stack and static train mode, one step (``run_pair``) or several at
 given loss modes in turn (``run_steps``, which also takes ``bf16``): the
-harness of the learner parity tests.
+harness of the learner parity tests. ``build_pair`` sets both steps up
+for tests that drive the env and pool themselves.
 
 The port takes its sampling noise as tensors; ``step_noise`` re-derives it
 from the keys that the JAX step splits, so both sample the same actions.
@@ -53,6 +54,37 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
                      train_mode, aux)[0]
 
 
+def build_pair(ecfg, env_id: str, network: str = "tat-maze-lstm",
+               train_mode: int = 0, stack: int = 1, num_envs: int = B,
+               num_steps: int = T, optimizer: str = "Adam",
+               aux: str = "reward", bf16: bool = False, grads: bool = False):
+    """Both packages' train steps of `network` on `ecfg` with an external
+    pool of `num_envs` rows, from one set of initial params -> (JAX env,
+    params, optimizer, jitted step, the port's env, model, step); with
+    `grads` JAX's optimizer state also hands back the raw gradients."""
+    sizes = dict(env_id=env_id, num_envs=num_envs, reset_pool=num_envs,
+                 num_steps=num_steps, train_mode=train_mode,
+                 optimizer=optimizer)
+    jenv = JaxEnv(ecfg)
+    jn = dataclasses.replace(
+        JNetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
+    jt = JTrainConfig(**sizes)
+    jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
+    params = jm.init(jax.random.PRNGKey(0))
+    opt = j_opt_for(jn, jt, params)
+    if grads:
+        opt = capture_grads(opt)
+    step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
+    env = TrackEnv(torch_cfg(ecfg), "cpu")
+    tt = TrainConfig(**sizes)
+    tn = dataclasses.replace(
+        NetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
+    model = build_model(tn, ecfg.num_actions, ecfg.obs_shape, device="cpu")
+    model.load_state_dict(params_from_flax(_host(params)))
+    ts = make_train_step(model, env, tn, tt, make_optimizer_for(model, tt))
+    return jenv, params, opt, step, env, model, ts
+
+
 def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
               stack: int = 1, train_mode: int = 0, aux: str = "reward",
               bf16: bool = False):
@@ -61,43 +93,27 @@ def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
     static `train_mode`, with ``NetConfig.bf16`` = `bf16` in both -> per
     step, run_pair's dict."""
     ecfg = dataclasses.replace(parse_env_id(env_id), **FAST)
-    jenv = JaxEnv(ecfg)
-    jt = JTrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
-                      train_mode=train_mode, optimizer=optimizer)
-    jn = dataclasses.replace(
-        JNetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
-    jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
-    params = jm.init(jax.random.PRNGKey(0))
-    opt = capture_grads(j_opt_for(jn, jt, params))
+    jenv, params, opt, step, env, model, ts = build_pair(
+        ecfg, env_id, network, train_mode, stack, optimizer=optimizer,
+        aux=aux, bf16=bf16, grads=True)
     reset = jax.jit(lambda k: jenv.reset_batch(k, B))
     state, obs = reset(jax.random.PRNGKey(1))
     pool_state, pool_obs = reset(jax.random.PRNGKey(2))
     stack_obs = jnp.repeat(obs[:, :, None], stack, axis=2)
-    hx = jnp.zeros((B, 2, jn.rnn_out), jnp.float32)
+    hx = jnp.zeros((B, 2, model.cfg.rnn_out), jnp.float32)
     carry = JCarry(state, stack_obs, hx, hx, jax.random.PRNGKey(3))
-    step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
-
-    tc = torch_cfg(ecfg)
-    env = TrackEnv(tc, "cpu")
-    tt = TrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
-                     train_mode=train_mode, optimizer=optimizer)
-    tn = dataclasses.replace(
-        NetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
-    model = build_model(tn, tc.num_actions, tc.obs_shape, device="cpu")
-    model.load_state_dict(params_from_flax(_host(params)))
-    topt = make_optimizer_for(model, tt)
     tcarry = TrainCarry(torch_state(state),
                         torch.from_numpy(np.array(stack_obs)),
-                        torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
+                        torch.from_numpy(np.array(hx)),
+                        torch.from_numpy(np.array(hx)),
                         torch.Generator().manual_seed(0))
     tpool = (torch_state(pool_state), torch.from_numpy(np.array(pool_obs)))
-    ts = make_train_step(model, env, tn, tt, topt)
 
     opt_state, ptr = opt.init(params), jnp.int32(0)
     tptr = init_pool_ptr(device="cpu")
     runs = []
     for mode in modes:
-        noise = step_noise(carry.key, T, B, tc.num_actions)
+        noise = step_noise(carry.key, T, B, env.cfg.num_actions)
         params, opt_state, carry, m, ptr = step(
             params, opt_state, carry, jnp.int32(mode),
             (pool_state, pool_obs, ptr))
