@@ -9,6 +9,10 @@ With `--tat-seeds 0-7` it runs only the TAT-continuous bar of phase 17,
 for each seed on the card and on the CPU (`--tat-devices`; `--tat-control`
 adds each seed at train mode 0, where the aux head does not learn), each
 run in a spawned process, and prints every run and each device's summary.
+With `--update-check [TRACKER]` it runs only phase 4's update check, at
+the K=16 Nav recipe's batch (1024 envs, a pool of 256), from fresh
+parameters, from the sharpened tracker and from the flax-format tracker
+file TRACKER if one is given.
 
 Phases (each prints one line with its seconds):
   1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`
@@ -42,9 +46,19 @@ Phases (each prints one line with its seconds):
      8-step train step's loss to 1e-4 relative, on the Block main path's id
      and on Track2D-MazeFullRPF-v0, one AD-VAT train step at mode -1
      (loss and pred_loss), and one each of maze-gru with SharedRMSprop,
-     icml-lstm on Full obs and tat-cnn-lstm on Full obs; and the greedy
+     icml-lstm on Full obs and tat-cnn-lstm on Full obs; the greedy
      evaluator on the AD-VAT eval env, 8 episodes of 60 steps, episode
-     lengths equal and returns to 1e-5; then [reference-host]: GymTrackEnv
+     lengths equal and returns to 1e-5; and one train step of the K=16
+     Nav recipe's config as the trainer CLI builds it (tat-maze-lstm on
+     Track2D-BlockPartialNav-v0, train mode 0, remat on, 20 steps) at 256
+     envs and a pool of 64, from the same state, parameters and noise:
+     the carry equal, and the loss and every gradient to 1e-4 of its
+     tensor's largest entry, every updated parameter to 1e-4 of its
+     layer's largest entry, from fresh parameters
+     and from the same model with its tracker's policy head scaled until
+     its first-step entropy is below 0.05 (the worst relative difference
+     of each of the tracker's tensor families printed); then
+     [reference-host]: GymTrackEnv
      on Track2D-BlockPartialNav-v0 and Track2D-BlockPartialPZR-v0, reset and
      20 fixed-action steps from the same draws (obs and done equal, integer
      state bit for bit, floats to 1e-6), and one make_host_update of
@@ -205,6 +219,20 @@ REFERENCE_NETS = (
     ("Track2D-BlockPartialNav-v0", 0, "maze-gru", "RMSprop"),
     ("Track2D-BlockFullNav-v0", 0, "icml-lstm", "Adam"),
     ("Track2D-BlockFullPZR-v0", -1, "tat-cnn-lstm", "Adam"))
+
+#: the K=16 Nav recipe (runs/postrun5.sh:21-25) as the trainer CLI parses
+#: it (remat on), less its --num-envs and --reset-pool
+UPDATE_FLAGS = ["--env", BENCH_ENV, "--env-base", BENCH_ENV, "--network",
+                "tat-maze-lstm", "--train-mode", "0", "--pool-refresh", "16"]
+#: the reference phase's update check: the recipe's 1024 envs and pool of
+#: 256 cut by 4 (tests/test_torch_cuda.py runs the recipe's batch)
+UPDATE_ENVS, UPDATE_POOL = 256, 64
+#: each gradient tensor, card against CPU, to this share of its largest
+#: entry, and each updated parameter to this share of its layer's largest
+#: entry (float32 on both sides, no TF32)
+UPDATE_TOL = 1e-4
+#: the low-entropy policy: its tracker's mean entropy at the first step
+LOW_ENTROPY = 0.05
 
 #: the trainer CLI's AD-VAT run: the JAX CLI's defaults at full width
 CLI_TRAIN_FLAGS = ["--num-envs", "4096", "--reset-pool", "512",
@@ -650,6 +678,167 @@ def check_train_step(torch, tconfig, env_mod, learner, dueling, env_id,
             (results["cuda"]["pred_loss"], results["cpu"]["pred_loss"]))
 
 
+def sharpen_tracker(torch, model, obs_stack, limit=LOW_ENTROPY):
+    """Scale the tracker's policy head (weight and bias) by powers of 2
+    until its mean entropy at the first step on `obs_stack`, from a zero
+    recurrent state, is below `limit` -> (scale, entropy)."""
+    from active_tracking_rl_torch.rl.rollout import obs_to_model
+    head = model.player0.policy
+    obs = obs_to_model(obs_stack)[:, 0]
+    h = torch.zeros((obs.shape[0], model.cfg.rnn_out), device=obs.device)
+    scale = 1.0
+    with torch.no_grad():
+        while True:
+            log_p = torch.log_softmax(model.tracker_fwd(obs, h, h).logits, -1)
+            entropy = float(-(log_p.exp() * log_p).sum(-1).mean())
+            if entropy < limit:
+                return scale, entropy
+            if scale > 2 ** 20:
+                raise AssertionError(f"the tracker's entropy stays at "
+                                     f"{entropy} under a scale of {scale}")
+            head.weight.mul_(2)
+            head.bias.mul_(2)
+            scale *= 2
+
+
+def _worst_by_family(got, want, layer_scale=False):
+    """Per family of tensors (a layer: a name less its last part), the
+    largest of max|got - want| / scale over its tensors, the scale being
+    each tensor's largest entry in `want` or, with `layer_scale`, the
+    largest over the layer's tensors."""
+    scales, out = {}, {}
+    for name, w in want.items():
+        family = name.rsplit(".", 1)[0]
+        scale = float(w.abs().max())
+        scales[name] = scale
+        scales[family] = max(scales.get(family, 0.0), scale)
+    for name, w in want.items():
+        family = name.rsplit(".", 1)[0]
+        scale = scales[family if layer_scale else name]
+        diff = float((got[name] - w).abs().max())
+        out[family] = max(out.get(family, 0.0),
+                          diff / scale if scale > 0 else diff)
+    return out
+
+
+def check_update(torch, num_envs, pool, gen_cpu, tracker=None,
+                 low_entropy=False):
+    """One train step of the K=16 Nav recipe's config as the trainer CLI
+    builds it (tat-maze-lstm on Track2D-BlockPartialNav-v0, train mode 0,
+    20 steps, remat on) at `num_envs` envs and a pool of `pool` rows, on
+    the card and on the CPU from the same state (reset on the card and
+    copied), parameters and noise: the env carry after the step equal, and
+    the loss and every gradient (as the update used it, after the clip)
+    within UPDATE_TOL of its tensor's largest entry, and every updated
+    parameter tensor within UPDATE_TOL of its layer's largest entry.
+    The parameters are a fresh model's from `gen_cpu`, with the tracker
+    file `tracker` loaded over it if given; `low_entropy` sharpens the
+    tracker first (sharpen_tracker). Returns the worst relative errors per
+    tensor family of the gradients, the parameters and the updates (the
+    parameters' changes, not held to the tolerance), the losses, the
+    sharpening's scale and first-step entropy, and the step's entropy."""
+    from active_tracking_rl_torch import config as tconfig
+    from active_tracking_rl_torch.envs import env as env_mod
+    from active_tracking_rl_torch.models import dueling
+    from active_tracking_rl_torch.rl import checkpoint, learner
+    from active_tracking_rl_torch.rl.rollout import stack_fill
+    from active_tracking_rl_torch.run import train as train_cli
+    args = train_cli.build_argparser().parse_args(
+        UPDATE_FLAGS + ["--num-envs", str(num_envs), "--reset-pool",
+                        str(pool)])
+    tcfg = train_cli.train_config_from_args(args)
+    ncfg = train_cli.net_config_from_args(args, tcfg)
+    assert tcfg.remat and tcfg.train_mode == 0 and ncfg.name == "tat-maze-lstm"
+    ecfg = tconfig.parse_env_id(tcfg.env_id)
+    n, k = num_envs, ncfg.stack_frames
+    draws = env_mod.draw_reset(ecfg, n + pool, gen_cpu, "cpu")
+    noise = learner.draw_step_noise(tcfg.num_steps, n, ecfg.num_actions,
+                                    gen_cpu, "cpu")
+    state, obs = env_mod.TrackEnv(ecfg, "cuda").reset(_to(draws, "cuda"))
+    state, obs = state.map(lambda x: x.cpu()), obs.cpu()
+    model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                device="cpu", generator=gen_cpu)
+    if tracker is not None:
+        checkpoint.load_params(model, load_tracker=tracker)
+    scale, entropy = 1.0, None
+    if low_entropy:
+        scale, entropy = sharpen_tracker(torch, model,
+                                         stack_fill(obs[:n], k))
+    params = {name: v.clone() for name, v in model.state_dict().items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        env = env_mod.TrackEnv(ecfg, dev)
+        s, o = state.map(lambda x: x.to(dev)), obs.to(dev)
+        model = dueling.build_model(ncfg, ecfg.num_actions, ecfg.obs_shape,
+                                    device=dev)
+        model.load_state_dict(params)
+        opt = learner.make_optimizer_for(model, tcfg)
+        zeros = torch.zeros((n, 2, ncfg.rnn_out), device=dev)
+        carry = learner.TrainCarry(s.map(lambda x: x[:n]),
+                                   stack_fill(o[:n], k), zeros,
+                                   zeros.clone(), None)
+        step = learner.make_train_step(model, env, ncfg, tcfg, opt)
+        carry, metrics, _ = step(
+            carry, tcfg.train_mode,
+            (s.map(lambda x: x[n:]), o[n:], learner.init_pool_ptr(device=dev)),
+            learner.StepNoise(*(x.to(dev) for x in noise)))
+        out[dev] = dict(
+            carry=carry.env_state.map(lambda x: x.cpu()),
+            loss=metrics.loss.item(), entropy=float(metrics.entropy[0]),
+            grads={name: p.grad.cpu() for name, p in model.named_parameters()
+                   if p.grad is not None},
+            params={name: v.cpu() for name, v in model.state_dict().items()})
+    cpu, card = out["cpu"], out["cuda"]
+    _assert_state_close(torch, cpu["carry"], card["carry"], "update carry")
+    if set(cpu["grads"]) != set(card["grads"]) or not cpu["grads"]:
+        raise AssertionError(f"gradients of {sorted(card['grads'])} on the "
+                             f"card, of {sorted(cpu['grads'])} on the CPU")
+    # float32 on both sides with TF32 off: only reduction order differs
+    if not abs(cpu["loss"] - card["loss"]) <= UPDATE_TOL * max(
+            1.0, abs(cpu["loss"])):
+        raise AssertionError(f"update loss cuda {card['loss']} != cpu "
+                             f"{cpu['loss']}")
+    # a parameter against its layer's scale: a bias that starts at 0 is
+    # one update (~1e-3) after the step, and SharedAdam (eps 1e-3) turns an
+    # absolute gradient difference d into an update difference of up to
+    # 0.03 d whatever the element's own gradient, so the bias's own scale
+    # measures the update, not the parameter
+    worst = {"grads": _worst_by_family(card["grads"], cpu["grads"]),
+             "params": _worst_by_family(card["params"], cpu["params"],
+                                        layer_scale=True),
+             "updates": _worst_by_family(
+                 {name: v - params[name] for name, v in card["params"].items()},
+                 {name: v - params[name] for name, v in cpu["params"].items()
+                  if not torch.equal(v, params[name])})}
+    res = dict(worst, loss=(card["loss"], cpu["loss"]), scale=scale,
+               first_entropy=entropy,
+               entropy=(card["entropy"], cpu["entropy"]))
+    bad = {f"{kind} {family}": err for kind in ("grads", "params")
+           for family, err in worst[kind].items() if not err <= UPDATE_TOL}
+    if bad:
+        raise AssertionError(f"update card vs CPU beyond {UPDATE_TOL} of "
+                             f"scale: {bad}; {update_text(res)}")
+    return res
+
+
+def update_text(res) -> str:
+    """check_update's result on one line: the worst relative error of each
+    of the tracker's (player0's) families; the target's parameters are not
+    trained at mode 0 and stay equal."""
+    def fams(d):
+        return ", ".join(f"{f[len('player0.'):]} {e:.2e}"
+                         for f, e in sorted(d.items())
+                         if f.startswith("player0."))
+    first = ("" if res["first_entropy"] is None else
+             f"policy head x{res['scale']:g}, first-step entropy "
+             f"{res['first_entropy']:.4f}, ")
+    return (f"{first}step entropy cuda {res['entropy'][0]:.4f} cpu "
+            f"{res['entropy'][1]:.4f}; loss cuda {res['loss'][0]:.6f} cpu "
+            f"{res['loss'][1]:.6f}; worst |cuda - cpu| / scale: grads "
+            f"[{fams(res['grads'])}]; params (layer scale) "
+            f"[{fams(res['params'])}]; updates [{fams(res['updates'])}]")
+
+
 def check_eval(torch, tconfig, env_mod, dueling, evaluate, gen_cpu,
                episodes=8, max_steps=60):
     """The greedy evaluator of the AD-VAT preset on its eval env, on the card
@@ -705,6 +894,9 @@ def phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
         check_reset_steps(torch, env_mod, ecfg, gen_cpu, REFERENCE_ROWS, what)
     eval_lens = check_eval(torch, tconfig, env_mod, dueling, evaluate,
                            gen_cpu)
+    updates = {what: check_update(torch, UPDATE_ENVS, UPDATE_POOL, gen_cpu,
+                                  low_entropy=low)
+               for what, low in (("fresh", False), ("low-entropy", True))}
     loss_text = "; ".join(
         f"{k} loss cuda {lg:.6f} vs cpu {lc:.6f}, pred_loss cuda {pg:.6f} "
         f"vs cpu {pc:.6f}" for k, ((lg, lc), (pg, pc)) in losses.items())
@@ -712,7 +904,11 @@ def phase_reference(torch, tconfig, env_mod, learner, dueling, evaluate,
         f"{len(configs)} configs ({len(ids)} level-0 ids, Moore, RPF on "
         f"flood_relax) at {REFERENCE_ROWS} rows; 8-step train step: "
         f"{loss_text}; greedy evaluator, {len(eval_lens)} episodes of 60 "
-        f"steps: lengths {eval_lens.tolist()} equal, returns to 1e-5")
+        f"steps: lengths {eval_lens.tolist()} equal, returns to 1e-5; "
+        f"K=16 Nav update (remat on) at {UPDATE_ENVS} envs, pool "
+        f"{UPDATE_POOL}, every gradient and updated parameter to "
+        f"{UPDATE_TOL:g} of its tensor's or layer's scale: " + "; ".join(
+            f"{what}: {update_text(res)}" for what, res in updates.items()))
 
 
 def reset_counts(flood) -> None:
@@ -1979,7 +2175,38 @@ def parse_args(argv):
                    help="devices of the sweep (default cuda,cpu)")
     p.add_argument("--tat-control", action="store_true",
                    help="also run each seed at train mode 0")
+    p.add_argument("--update-check", nargs="?", const="", default=None,
+                   metavar="TRACKER",
+                   help="run only the K=16 Nav update check, card against "
+                   "CPU, at the recipe's batch: fresh, sharpened, and from "
+                   "the flax-format tracker file TRACKER if given")
     return p.parse_args(argv)
+
+
+#: the K=16 Nav recipe's batch: 1024 envs, a pool of 256
+RECIPE_ENVS, RECIPE_POOL = 1024, 256
+
+
+def update_sweep(tracker, envs=RECIPE_ENVS, pool=RECIPE_POOL) -> int:
+    """The update check alone: fresh, low-entropy, and from `tracker`."""
+    import torch
+    _no_tf32()
+    cases = [("fresh", None, False), ("low-entropy", None, True)]
+    if tracker:
+        cases.append((f"tracker {tracker}", tracker, False))
+    failed = 0
+    for what, path, low in cases:
+        t0 = time.perf_counter()
+        try:
+            res = check_update(torch, envs, pool,
+                               torch.Generator().manual_seed(0),
+                               tracker=path, low_entropy=low)
+            text = update_text(res)
+        except AssertionError as e:
+            failed += 1
+            text = f"FAILED: {e}"
+        say("update", t0, f"{what} at {envs} envs, pool {pool}: {text}")
+    return 1 if failed else 0
 
 
 def main(argv=None) -> int:
@@ -1996,6 +2223,8 @@ def main(argv=None) -> int:
         seeds = (range(int(lo), int(hi) + 1) if hi else
                  [int(x) for x in args.tat_seeds.split(",")])
         return tat_sweep(list(seeds), devices, args.tat_control)
+    if args.update_check is not None:
+        return update_sweep(args.update_check or None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

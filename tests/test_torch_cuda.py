@@ -1,6 +1,11 @@
 """The three CUDA flood launchers against their plain twins on the card,
 also at the caps of the bit-parallel BFS kernel (csrc/flood_bfs.cu) behind
-flood_sweep, flood_sweep16 and flood_relax.
+flood_sweep, flood_sweep16 and flood_relax; one train step of the K=16
+Nav recipe at its batch (1024 envs, 20 steps, a pool of 256, remat on as
+the trainer CLI trains) on the card against the CPU, every gradient and
+every updated parameter (chip_smoke.py:check_update); and the draws that
+the card's generator (Philox) makes in production, held to the CPU
+generator's laws (which tests/test_torch_draw_laws.py holds to JAX's).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (the suite's conftest.py needs JAX):
@@ -17,8 +22,13 @@ import torch
 
 from active_tracking_rl_torch import config as tconfig
 from active_tracking_rl_torch.envs import maps
-from active_tracking_rl_torch.ops import flood
-from torch_mazes import perfect_maze  # tests/ is on the path under pytest
+from active_tracking_rl_torch.envs.env import TrackEnv
+from active_tracking_rl_torch.models.heads import sample_discrete
+from active_tracking_rl_torch.ops import flood, noise
+from active_tracking_rl_torch.utils.platform import pin_float32
+# tests/ is on the path under pytest
+from torch_mazes import perfect_maze
+from torch_stats import OFFSET_CATS, chi2_2samp_ok, counts, ks_2samp_ok
 
 ENV_IDS = ["Track2D-BlockPartialNav-v0", "Track2D-BlockPartialNav-v1",
            "Track2D-EmptyPartialNav-v0", "Track2D-MazePartialNav-v0",
@@ -157,3 +167,90 @@ def test_kernels_refuse_bad_inputs_on_the_card():
         with pytest.raises(ValueError):
             kernel(torch.zeros((1, 200, 200), dtype=torch.uint8, device=dev),
                    goals[:1], 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("low_entropy", [False, True])
+def test_update_matches_cpu_at_the_recipe_batch(low_entropy):
+    """From a fresh model, and from one whose tracker's policy head is
+    scaled until its first-step entropy is below 0.05: the loss and every
+    gradient to 1e-4 of its tensor's largest entry, every updated
+    parameter to 1e-4 of its layer's (chip_smoke.py's reference phase
+    makes the check at 256 envs)."""
+    _card()
+    import chip_smoke   # the repository root is on the path under pytest
+    pin_float32()
+    res = chip_smoke.check_update(torch, chip_smoke.RECIPE_ENVS,
+                                  chip_smoke.RECIPE_POOL,
+                                  torch.Generator().manual_seed(0),
+                                  low_entropy=low_entropy)
+    print(chip_smoke.update_text(res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logits", [(0.0, -4.0, -8.0, -12.0),
+                                    (0.0, -6.0, -10.0, -10.0)])
+def test_card_action_draws_follow_the_cpu_law(logits):
+    """sample_discrete's actions at saturated logits under Gumbel noise
+    drawn by ops/noise.py on the card and on the CPU: one law (chi-square
+    over 2^22 draws a side)."""
+    _card()
+    n, a = 1 << 22, len(logits)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        g = noise.gumbel((n, a), torch.Generator(device=dev).manual_seed(4),
+                         dev)
+        x = torch.tensor(logits, device=dev).expand(n, a)
+        got[dev] = torch.bincount(sample_discrete(x, g).action,
+                                  minlength=a).cpu().numpy()
+    ok, stat, crit = chi2_2samp_ok(got["cuda"], got["cpu"])
+    assert ok, f"chi2 {stat:.1f} > {crit:.1f}: {got}"
+
+
+@pytest.mark.cuda
+def test_card_reset_draws_follow_the_cpu_law():
+    """Resets of Track2D-BlockPartialNav-v0 at the recipe's sizes drawn on
+    the card and on the CPU: the interior wall fraction (KS), the target's
+    spawn offset (chi-square) and each Nav tape's share of each action
+    (KS; 256 tapes on the card, 64 on the CPU)."""
+    _card()
+    cfg = tconfig.parse_env_id("Track2D-BlockPartialNav-v0")
+    walls, offsets, shares = {}, {}, {}
+    for dev, tapes in (("cuda", 256), ("cpu", 64)):
+        gen = torch.Generator(device=dev).manual_seed(9)
+        mz = maps.generate_map(cfg, maps.draw_map(cfg, 1024, gen, dev))
+        walls[dev] = mz[:, 1:-1, 1:-1].float().mean((1, 2)).cpu().numpy()
+        pos, _ = maps.sample_spawns(cfg, mz, maps.draw_spawns(cfg, 1024, gen,
+                                                              dev))
+        offsets[dev] = counts([tuple(o) for o in
+                               (pos[:, 1] - pos[:, 0]).tolist()],
+                              OFFSET_CATS)
+        state, _ = TrackEnv(cfg, dev).reset_batch(tapes, gen)
+        tape = state.tape.cpu().numpy()
+        shares[dev] = np.stack([(tape == k).mean(1)
+                                for k in range(cfg.num_actions)], 1)
+    ok, d, crit = ks_2samp_ok(walls["cuda"], walls["cpu"])
+    assert ok, f"wall fraction KS {d:.4f} > {crit:.4f}"
+    assert offsets["cuda"][1] == 0 and offsets["cpu"][1] == 0
+    ok, stat, crit = chi2_2samp_ok(offsets["cuda"][0], offsets["cpu"][0])
+    assert ok, f"spawn offset chi2 {stat:.1f} > {crit:.1f}: {offsets}"
+    for k in range(cfg.num_actions):
+        ok, d, crit = ks_2samp_ok(shares["cuda"][:, k], shares["cpu"][:, k])
+        assert ok, f"tape action {k} share KS {d:.4f} > {crit:.4f}"
+
+
+@pytest.mark.cuda
+def test_card_window_generators_draw_apart():
+    """run/train.py's pool windows and evals seed a card generator from
+    (seed, iteration): each window's draws differ from the others'."""
+    _card()
+    from active_tracking_rl_torch.run.train import POOL_SEED, \
+        iteration_generator
+    draws = [torch.rand(4096, generator=iteration_generator(1 + POOL_SEED, w,
+                                                            "cuda"),
+                        device="cuda") for w in (1, 17, 33, 49)]
+    for i in range(len(draws)):
+        for j in range(i):
+            assert not torch.equal(draws[i], draws[j]), (i, j)
+            r = torch.corrcoef(torch.stack([draws[i], draws[j]]))[0, 1]
+            assert abs(float(r)) < 0.1, (i, j, float(r))

@@ -1,29 +1,29 @@
 """Many train steps of the port in lockstep with the JAX package on the
 amortized reset pool (``--pool-refresh 16``), in the config of RESULTS.md
 §1.9's stack-4 and K=16 Nav recipes (tat-maze-lstm on
-Track2D-BlockPartialNav-v0, train mode 0) but not at their scale: a pool
-of 16 or 32 rows in place of 1024 envs and a pool of 256. One set of
-initial params; every step's sampling noise re-derived from JAX's carry
-key. The pool windows refresh at the iterations run/train.py's do
-(``(it - 1) % 16 == 0``) and restart the pointer there, which then wraps
-inside the window; but each window's draws come from
-``fold_in(PRNGKey(2), it)`` through tests/torch_draws.py:batch_draws, for
-both packages, not from run/train.py's
-``iteration_generator(seed + POOL_SEED, window)``.
+Track2D-BlockPartialNav-v0, train mode 0). One set of initial params;
+every step's sampling noise re-derived from JAX's carry key. The pool
+windows refresh at the iterations run/train.py's do (``(it - 1) % 16 ==
+0``) and restart the pointer there, which then wraps inside the window;
+but each window's draws come from ``fold_in(PRNGKey(2), it)`` through
+tests/torch_draws.py:batch_draws, for both packages, not from
+run/train.py's ``iteration_generator(seed + POOL_SEED, window)``.
 
-The pytest case runs the Nav tapes at the learner tests' reduced FAST
-sizes (tests/torch_learner_pair.py: 4 goal candidates, 96 flood
-iterations, tapes of 96 ticks; the recipe's are 16, 256 and 512). Over 48
-iterations (three pool windows, 16 envs x 20 steps each) every env state
-equals JAX's bit for bit after every iteration; the tracker's entropy and
-the loss agree to rtol 1e-4 / atol 1e-5 each iteration, and the
-parameters at the end to atol 1e-5 (float32 on both sides; measured
-6.0e-8 at one frame, 1.2e-7 at four).
+The pytest case runs 16 envs on a pool of 16 rows, with the Nav tapes at
+the learner tests' reduced FAST sizes (tests/torch_learner_pair.py: 4 goal
+candidates, 96 flood iterations, tapes of 96 ticks; the recipe's are 16,
+256 and 512) and remat off. Over 48 iterations (three pool windows, 16
+envs x 20 steps each) every env state equals JAX's bit for bit after
+every iteration; the tracker's entropy and the loss agree to rtol 1e-4 /
+atol 1e-5 each iteration, and the parameters at the end to atol 1e-5
+(float32 on both sides; measured 6.0e-8 at one frame, 1.2e-7 at four).
 
-Run as a script for a longer horizon (a pool of 32 rows, 600
-iterations) at the recipe's Nav sizes (the env config's own), printing
-where the two trajectories part (the first iteration whose positions
-differ, once float rounding has flipped a sampled action)::
+Run as a script for the recipe's scale: 1024 envs on a pool of 256 rows
+(so one pool row serves several envs within a step and within a window),
+the recipe's Nav sizes (the env config's own) and remat on in both, as
+the trainer CLIs train, for up to 600 iterations, printing where the two
+trajectories part (the first iteration whose positions differ, once float
+rounding has flipped a sampled action)::
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_lockstep_k16 --stack 4
 """
@@ -50,20 +50,25 @@ from tests.torch_learner_pair import FAST, _host, build_pair
 ENV_ID = "Track2D-BlockPartialNav-v0"
 REFRESH, T = 16, 20
 TOL = dict(rtol=1e-4, atol=1e-5)
-#: the script's horizon: a pool of 32 rows, 600 iterations
-SCRIPT_ENVS, SCRIPT_ITERS = 32, 600
+#: the script's horizon: the recipe's 1024 envs and pool of 256, remat on,
+#: 600 iterations
+SCRIPT_ENVS, SCRIPT_POOL, SCRIPT_REMAT, SCRIPT_ITERS = 1024, 256, True, 600
 
 
-def lockstep(num_envs: int, iters: int, stack: int, sizes: dict):
+def lockstep(num_envs: int, pool_rows: int, iters: int, stack: int,
+             sizes: dict, remat: bool = False):
     """Yield (iteration, JAX metrics, port metrics, JAX carry, port carry,
     JAX params, port model, JAX pool pointer, port pool pointer) after each
-    of `iters` iterations; the pool holds `num_envs` rows, and `sizes`
-    replaces fields of the env's config."""
-    b = p = num_envs
+    of `iters` iterations of `num_envs` envs on a pool of `pool_rows`
+    rows; `sizes` replaces fields of the env's config, and `remat` is
+    both packages' ``TrainConfig.remat``."""
+    b, p = num_envs, pool_rows
     ecfg = dataclasses.replace(parse_env_id(ENV_ID), **sizes)
     jenv, params, opt, step, env, model, ts = build_pair(
-        ecfg, ENV_ID, "tat-maze-lstm", 0, stack, b, T)
+        ecfg, ENV_ID, "tat-maze-lstm", 0, stack, b, T, reset_pool=p,
+        remat=remat)
     reset = jax.jit(lambda k: jenv.reset_batch(k, b))
+    reset_pool = jax.jit(lambda k: jenv.reset_batch(k, p))
     state, obs = reset(jax.random.PRNGKey(1))
     hx = jnp.zeros((b, 2, 128), jnp.float32)
     carry = JCarry(state, jnp.repeat(obs[:, :, None], stack, axis=2), hx, hx,
@@ -76,7 +81,7 @@ def lockstep(num_envs: int, iters: int, stack: int, sizes: dict):
     for it in range(1, iters + 1):
         if (it - 1) % REFRESH == 0:     # run/train.py's window, pointer 0
             key = jax.random.fold_in(jax.random.PRNGKey(2), it)
-            pool, ptr = reset(key), jnp.int32(0)
+            pool, ptr = reset_pool(key), jnp.int32(0)
             tpool, tptr = env.reset(batch_draws(ecfg, key, p)), init_pool_ptr(
                 device="cpu")
         noise = step_noise(carry.key, T, b, ecfg.num_actions)
@@ -90,7 +95,7 @@ def lockstep(num_envs: int, iters: int, stack: int, sizes: dict):
 def test_k16_pool_steps_in_lockstep_with_jax(stack):
     wraps = 0
     for it, m, tm, carry, tcarry, params, model, ptr, tptr in lockstep(
-            16, 48, stack, FAST):
+            16, 16, 48, stack, FAST):
         assert int(tptr) == int(ptr), it
         assert_state_equal(tcarry.env_state, carry.env_state)
         np.testing.assert_array_equal(tcarry.obs_stack.numpy(),
@@ -112,7 +117,8 @@ def main(argv=None) -> None:
     ap.add_argument("--stack", type=int, default=1)
     args = ap.parse_args(argv)
     for it, m, tm, carry, tcarry, params, model, ptr, tptr in lockstep(
-            SCRIPT_ENVS, SCRIPT_ITERS, args.stack, {}):
+            SCRIPT_ENVS, SCRIPT_POOL, SCRIPT_ITERS, args.stack, {},
+            SCRIPT_REMAT):
         same = int(tptr) == int(ptr) and np.array_equal(
             tcarry.env_state.pos.numpy(), np.asarray(carry.env_state.pos))
         if it % 10 == 0 or it == SCRIPT_ITERS or not same:

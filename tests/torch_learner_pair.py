@@ -57,14 +57,17 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
 def build_pair(ecfg, env_id: str, network: str = "tat-maze-lstm",
                train_mode: int = 0, stack: int = 1, num_envs: int = B,
                num_steps: int = T, optimizer: str = "Adam",
-               aux: str = "reward", bf16: bool = False, grads: bool = False):
+               aux: str = "reward", bf16: bool = False, grads: bool = False,
+               reset_pool: int = None, remat: bool = False):
     """Both packages' train steps of `network` on `ecfg` with an external
-    pool of `num_envs` rows, from one set of initial params -> (JAX env,
-    params, optimizer, jitted step, the port's env, model, step); with
-    `grads` JAX's optimizer state also hands back the raw gradients."""
-    sizes = dict(env_id=env_id, num_envs=num_envs, reset_pool=num_envs,
-                 num_steps=num_steps, train_mode=train_mode,
-                 optimizer=optimizer)
+    pool of `reset_pool` rows (default `num_envs`), from one set of initial
+    params -> (JAX env, params, optimizer, jitted step, the port's env,
+    model, step); with `grads` JAX's optimizer state also hands back the
+    raw gradients; `remat` as ``TrainConfig.remat`` in both (the trainer
+    CLIs train with it on)."""
+    sizes = dict(env_id=env_id, num_envs=num_envs,
+                 reset_pool=reset_pool or num_envs, num_steps=num_steps,
+                 train_mode=train_mode, optimizer=optimizer, remat=remat)
     jenv = JaxEnv(ecfg)
     jn = dataclasses.replace(
         JNetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
