@@ -5,7 +5,9 @@ utils/``): each module's reference is the JAX module of the same name. It
 imports torch and numpy only. Entry points take an explicit ``device``
 (default ``"cuda"``; the CLIs in ``run/`` take ``--device``); every
 function that uses randomness takes its draws as tensors at a seam,
-produced in production by a ``torch.Generator``.
+produced in production by ``ops/noise.py``'s counter-based threefry2x32
+generator (``Threefry``, ``jax.random``'s algorithm in plain integer ops):
+one seed gives the same draws on the CPU and on the card.
 
 The hand-written kernel is the BFS flood fill, bound in ``ops/flood.py``:
 one bit-parallel frontier BFS (``csrc/flood_bfs.cu``) behind the launchers

@@ -27,6 +27,7 @@ import torch
 
 from active_tracking_rl_torch.config import EnvConfig, parse_env_id
 from active_tracking_rl_torch.envs.env import ResetDraws, TrackEnv
+from active_tracking_rl_torch.ops import noise
 
 
 class GymTrackEnv:
@@ -46,8 +47,7 @@ class GymTrackEnv:
         self.cfg = cfg if cfg is not None else parse_env_id(env_id)
         self.env_id = env_id
         self._env = TrackEnv(self.cfg, device)
-        self._generator = torch.Generator(
-            device=self._env.device).manual_seed(seed)
+        self._generator = noise.generator(seed, self._env.device)
         self._state = None
         self._traces: List[np.ndarray] = []
         self.resets = 0

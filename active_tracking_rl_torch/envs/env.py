@@ -3,7 +3,7 @@
 Port of ``active_tracking_rl_tpu/envs/env.py``. ``reset`` and ``step`` work
 on N rows at once (the JAX functions are single-row and vmapped). ``reset``
 takes all its randomness as ``ResetDraws``; ``TrackEnv.draw_reset`` makes
-them from a ``torch.Generator`` on the env's device.
+them from a ``noise.Threefry`` on the env's device.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from active_tracking_rl_torch.envs.opponents import (NavDraws, RamDraws,
                                                      build_tape, deltas,
                                                      draw_nav, draw_ram)
 from active_tracking_rl_torch.envs.types import EnvState, info_dict
+from active_tracking_rl_torch.ops.noise import Threefry
 
 
 @dataclasses.dataclass
@@ -31,30 +32,18 @@ class ResetDraws:
     ram: Optional[RamDraws] = None    # Ram only
 
 
-def draw_reset(cfg: EnvConfig, n: int, generator: torch.Generator,
-               device) -> ResetDraws:
-    """Every draw `reset` needs for n rows of `cfg`'s map and target mode."""
-    draws = ResetDraws(maps.draw_map(cfg, n, generator, device),
-                       maps.draw_spawns(cfg, n, generator, device))
+def draw_reset(cfg: EnvConfig, n: int, generator: Threefry, device,
+               rows: Optional[Tuple[int, int]] = None) -> ResetDraws:
+    """Every draw `reset` needs for n rows of `cfg`'s map and target mode;
+    with `rows` = (lo, hi) only rows lo..hi-1 of them, the generator
+    advancing as for n (a data-parallel rank's block)."""
+    draws = ResetDraws(maps.draw_map(cfg, n, generator, device, rows),
+                       maps.draw_spawns(cfg, n, generator, device, rows))
     if cfg.target_mode in ("Nav", "RPF"):
-        draws.nav = draw_nav(cfg, n, generator, device)
+        draws.nav = draw_nav(cfg, n, generator, device, rows)
     elif cfg.target_mode == "Ram":
-        draws.ram = draw_ram(cfg, n, generator, device)
+        draws.ram = draw_ram(cfg, n, generator, device, rows)
     return draws
-
-
-def draw_rows(draws, lo: int, hi: int):
-    """Rows [lo, hi) of every draw in `draws` (a draws dataclass whose
-    tensors all lead with the rows)."""
-    def cut(v):
-        if isinstance(v, torch.Tensor):
-            return v[lo:hi]
-        if dataclasses.is_dataclass(v):
-            return draw_rows(v, lo, hi)
-        return v
-
-    return dataclasses.replace(draws, **{f.name: cut(getattr(draws, f.name))
-                                         for f in dataclasses.fields(draws)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,8 +148,9 @@ class TrackEnv:
         self.cfg = cfg
         self.device = torch.device(device)
 
-    def draw_reset(self, n: int, generator: torch.Generator) -> ResetDraws:
-        return draw_reset(self.cfg, n, generator, self.device)
+    def draw_reset(self, n: int, generator: Threefry,
+                   rows: Optional[Tuple[int, int]] = None) -> ResetDraws:
+        return draw_reset(self.cfg, n, generator, self.device, rows)
 
     def reset(self, draws: ResetDraws) -> Tuple[EnvState, torch.Tensor]:
         return reset(self.cfg, draws)
@@ -168,26 +158,23 @@ class TrackEnv:
     def step(self, state: EnvState, actions: torch.Tensor):
         return step(self.cfg, state, actions)
 
-    def reset_batch(self, n: int, generator: torch.Generator,
+    def reset_batch(self, n: int, generator: Threefry,
                     rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[EnvState, torch.Tensor]:
         """n fresh episodes, drawn from `generator`. With `rows` = (lo, hi)
-        the draws of all n rows are made (the generator advances as for n)
-        and only rows lo..hi-1 are reset: a data-parallel rank's block."""
-        draws = self.draw_reset(n, generator)
-        if rows is not None and rows != (0, n):
-            draws = draw_rows(draws, *rows)
-        return reset(self.cfg, draws)
+        only rows lo..hi-1 are drawn and reset (the generator advances as
+        for n): a data-parallel rank's block."""
+        return reset(self.cfg, self.draw_reset(n, generator, rows))
 
-    def reset_batch_chunked(self, n: int, generator: torch.Generator,
+    def reset_batch_chunked(self, n: int, generator: Threefry,
                             chunk_max: int = 4096,
                             rows: Optional[Tuple[int, int]] = None
                             ) -> Tuple[EnvState, torch.Tensor]:
         """reset_batch in row groups of at most chunk_max, which bounds the
         peak memory of the draws and flood fields. Each group draws its own
         rows, so with one group this is reset_batch exactly. `rows` as in
-        reset_batch: every group draws, and only the rows in lo..hi-1 are
-        reset."""
+        reset_batch: every group advances the generator, and only the rows
+        in lo..hi-1 are drawn and reset."""
         lo, hi = rows if rows is not None else (0, n)
         num_chunks = -(-n // chunk_max)
         chunk = -(-n // num_chunks)
@@ -195,10 +182,9 @@ class TrackEnv:
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
             a, b = max(lo, c0), min(hi, c1)
-            draws = self.draw_reset(c1 - c0, generator)
+            draws = self.draw_reset(c1 - c0, generator,
+                                    (a - c0, b - c0) if a < b else (0, 0))
             if a < b:
-                if (a, b) != (c0, c1):
-                    draws = draw_rows(draws, a - c0, b - c0)
                 parts.append(reset(self.cfg, draws))
         if len(parts) == 1:
             return parts[0]

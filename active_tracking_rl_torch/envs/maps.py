@@ -3,7 +3,7 @@
 Port of ``active_tracking_rl_tpu/envs/maps.py``. Every function takes a
 batch of N maps and its random draws as tensors (``MapDraws``,
 ``SpawnDraws``); ``draw_map`` and ``draw_spawns`` make them from a
-``torch.Generator``. Fed the draws that ``jax.random`` made, each function
+``noise.Threefry``. Fed the draws that ``jax.random`` made, each function
 returns the JAX package's result bit for bit.
 """
 
@@ -49,34 +49,37 @@ class SpawnDraws:
     target: torch.Tensor       # (N, S*S) Gumbel: target cell near the tracker
 
 
-def draw_map(cfg: EnvConfig, n: int, generator: torch.Generator,
-             device) -> MapDraws:
-    u = torch.rand((n,), generator=generator, device=device)
+def draw_map(cfg: EnvConfig, n: int, generator: noise.Threefry, device,
+             rows: Optional[Tuple[int, int]] = None) -> MapDraws:
+    """The map draws of n rows (of rows lo..hi-1 with `rows`; the generator
+    advances as for n)."""
+    u = noise.uniform((n,), generator, device, rows=rows)
     if cfg.map_type == "Maze":
         max_complexity, max_density = maze_loop_bounds(cfg)
         half = cfg.maze_size // 2
-        picks = torch.rand((n, max_density, max_complexity, 1),
-                           generator=generator, device=device)
+        picks = noise.uniform((n, max_density, max_complexity, 1), generator,
+                              device, rows=rows)
         m = torch.arange(2, 5, device=device)
         return MapDraws(
             ratio_u=u,
             walk_start=noise.randint(half + 1, (n, max_density, 2), generator,
-                                     device),
+                                     device, rows=rows),
             walk_pick=torch.floor(picks * m).long())
     interior = cfg.maze_size - 2
     return MapDraws(
         ratio_u=u,
-        perm=noise.permutations(n, interior * interior, generator, device))
+        perm=noise.permutations(n, interior * interior, generator, device,
+                                rows))
 
 
-def draw_spawns(cfg: EnvConfig, n: int, generator: torch.Generator,
-                device) -> SpawnDraws:
+def draw_spawns(cfg: EnvConfig, n: int, generator: noise.Threefry, device,
+                rows: Optional[Tuple[int, int]] = None) -> SpawnDraws:
     c = cfg.maze_size ** 2
     return SpawnDraws(
-        tracker=noise.gumbel((n, c), generator, device),
-        goals=noise.gumbel((n, c), generator, device),
-        retry=noise.gumbel((n, _SPAWN_RETRIES, c), generator, device),
-        target=noise.gumbel((n, c), generator, device))
+        tracker=noise.gumbel((n, c), generator, device, rows),
+        goals=noise.gumbel((n, c), generator, device, rows),
+        retry=noise.gumbel((n, _SPAWN_RETRIES, c), generator, device, rows),
+        target=noise.gumbel((n, c), generator, device, rows))
 
 
 def block_obstacle_ratio(cfg: EnvConfig, u: torch.Tensor) -> torch.Tensor:

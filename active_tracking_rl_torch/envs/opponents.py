@@ -59,25 +59,26 @@ class RamDraws:
     plan: torch.Tensor         # (N, tape_len, 9) int8: the next random burst
 
 
-def draw_nav(cfg: EnvConfig, n: int, generator: torch.Generator,
-             device) -> NavDraws:
+def draw_nav(cfg: EnvConfig, n: int, generator: noise.Threefry, device,
+             rows: Optional[Tuple[int, int]] = None) -> NavDraws:
     g = cfg.nav_goal_candidates
     candidates = None
     if cfg.target_mode == "Nav":
         candidates = noise.gumbel((n, g - 1, cfg.maze_size ** 2), generator,
-                                  device)
+                                  device, rows)
     return NavDraws(
         candidates=candidates,
         planb=noise.randint(cfg.num_actions, (n, cfg.tape_len), generator,
-                            device))
+                            device, rows=rows))
 
 
-def draw_ram(cfg: EnvConfig, n: int, generator: torch.Generator,
-             device) -> RamDraws:
+def draw_ram(cfg: EnvConfig, n: int, generator: noise.Threefry, device,
+             rows: Optional[Tuple[int, int]] = None) -> RamDraws:
     na, tl = cfg.num_actions, cfg.tape_len
 
     def ints(low, high, shape, dtype=torch.int64):
-        return low + noise.randint(high - low, shape, generator, device, dtype)
+        return low + noise.randint(high - low, shape, generator, device,
+                                   dtype, rows)
 
     return RamDraws(
         plan0=ints(0, na, (n, _MAX_BURST), torch.int8),

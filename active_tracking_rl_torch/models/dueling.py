@@ -42,6 +42,7 @@ from active_tracking_rl_torch.models.heads import (ActionSample,
                                                    sample_discrete)
 from active_tracking_rl_torch.models.init import init_linear_
 from active_tracking_rl_torch.models.recurrent import GRUCell, LSTMCell
+from active_tracking_rl_torch.ops.noise import Threefry
 
 #: cfg.rnn -> the cell; the player holds it under that name
 CELLS = {"lstm": LSTMCell, "gru": GRUCell}
@@ -80,7 +81,7 @@ class A3CPlayer(nn.Module):
     def cell(self) -> Optional[nn.Module]:
         return None if self.rnn == "none" else getattr(self, self.rnn)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def reset_parameters(self, generator: Threefry) -> None:
         self.encoder.reset_parameters(generator)
         if self.cell is not None:
             self.cell.reset_parameters(generator)
@@ -124,7 +125,7 @@ class TATPlayer(A3CPlayer):
         self.fc_action_tracker = nn.Linear(num_actions, self.encoder.out_dim)
         self.reward_aux = nn.Linear(self.value.in_features, 1)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def reset_parameters(self, generator: Threefry) -> None:
         super().reset_parameters(generator)
         init_linear_(self.fc_action_tracker, generator)
         init_linear_(self.reward_aux, generator)
@@ -150,7 +151,7 @@ class DuelingModel(nn.Module):
             TATPlayer if net_cfg.tat else A3CPlayer)(net_cfg, num_actions,
                                                      obs_hw)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def reset_parameters(self, generator: Threefry) -> None:
         self.player0.reset_parameters(generator)
         if self.player1 is not None:
             self.player1.reset_parameters(generator)
@@ -219,7 +220,7 @@ class DuelingModel(nn.Module):
 
 
 def build_model(net_cfg: NetConfig, num_actions: int, obs_hw: Tuple[int, int],
-                device="cuda", generator: Optional[torch.Generator] = None,
+                device="cuda", generator: Optional[Threefry] = None,
                 single: bool = False) -> DuelingModel:
     """The model on `device`, initialized from `generator` when one is given."""
     model = DuelingModel(net_cfg, num_actions, obs_hw, single).to(device)

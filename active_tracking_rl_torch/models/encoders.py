@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from active_tracking_rl_torch.models.init import init_conv_, init_linear_
+from active_tracking_rl_torch.ops.noise import Threefry
 
 
 def _conv_out(n: int, kernel: int, stride: int, padding: int) -> int:
@@ -82,7 +83,7 @@ class _StackedConvEncoder(nn.Module):
             self.fc = nn.Linear(feat, self.fc_out)
             self.out_dim = self.fc_out
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def reset_parameters(self, generator: Threefry) -> None:
         for i in range(len(self.convs)):
             init_conv_(getattr(self, f"conv{i}"), generator)
         if self.fc is not None:

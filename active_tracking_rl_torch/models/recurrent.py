@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from active_tracking_rl_torch.models.init import torch_rnn_uniform_
+from active_tracking_rl_torch.ops.noise import Threefry
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -40,10 +41,9 @@ class _Cell(nn.Module):
         self.weight_hh = nn.Parameter(torch.empty(g, hidden))
         self.bias_ih = nn.Parameter(torch.zeros(g))
         self.bias_hh = nn.Parameter(torch.zeros(g))
-        # drawn now from torch's global generator, as nn.LSTMCell's are, so
-        # that a model built without a generator holds no uninitialized
-        # memory
-        self.reset_parameters(None)
+        # drawn now from a generator of key (0, 0), so that a model built
+        # without a generator holds no uninitialized memory
+        self.reset_parameters(Threefry())
 
     def reset_parameters(self, generator) -> None:
         torch_rnn_uniform_(self.weight_ih, self.hidden, generator)

@@ -34,6 +34,7 @@ from active_tracking_rl_torch.config import (NetConfig, TrainConfig,
                                              parse_env_id)
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.parallel.mesh import (Mesh, MeshSpec,
                                                     host_init, make_mesh,
                                                     shutdown)
@@ -59,7 +60,7 @@ def run_check(world: int, device, steps: int = 3,
     ecfg = dataclasses.replace(parse_env_id(ENV_ID), **REDUCED_ENV)
     env = TrackEnv(ecfg, device)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = noise.generator(seed, device)
     state = init_learner(model, env, ncfg, tcfg, gen, mesh)
     step = make_train_step(model, env, ncfg, tcfg, state.opt, pool_blocks,
                            mesh)

@@ -43,6 +43,8 @@ from pathlib import Path
 
 import torch
 
+from active_tracking_rl_torch.ops import noise
+
 #: the repository root: ranks run ``python -m`` from there
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -72,7 +74,7 @@ def bench_step(args, mesh, device) -> dict:
     num_envs = args.envs_per_device * mesh.world
     tcfg = TrainConfig(env_id=args.env, num_envs=num_envs,
                        reset_pool=max(num_envs // 8, 64), train_mode=0)
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = noise.generator(0, device)
     state = init_learner(model, env, ncfg, tcfg, gen, mesh)
     step = make_train_step(model, env, ncfg, tcfg, state.opt, mesh=mesh)
     carry = state.carry

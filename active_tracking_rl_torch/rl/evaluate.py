@@ -9,7 +9,7 @@ per-agent R_mean and R_std, EL_mean and EL_std, R_step, and S_rate, the
 share of episodes that last max_steps; the per-episode arrays beside them.
 
 It runs on the env's device: the card unless the caller builds the env on
-the CPU. The reset draws come from a ``torch.Generator`` or are given at the
+the CPU. The reset draws come from a ``noise.Threefry`` or are given at the
 seam (``ResetDraws``, as ``TrackEnv.reset`` takes them).
 """
 
@@ -23,6 +23,7 @@ import torch
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.envs.env import ResetDraws, TrackEnv
 from active_tracking_rl_torch.models.dueling import DuelingModel
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.rollout import (obs_to_model, stack_fill,
                                                  stack_push)
 
@@ -33,7 +34,7 @@ def make_eval_fn(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
     device. `draws` (ResetDraws of `episodes` rows) wins over `generator`."""
 
     @torch.no_grad()
-    def eval_fn(generator: Optional[torch.Generator] = None,
+    def eval_fn(generator: Optional[Threefry] = None,
                 draws: Optional[ResetDraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = env.draw_reset(episodes, generator)
@@ -87,7 +88,7 @@ def make_evaluator(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
     """evaluator(generator=None, draws=None) -> dict of host numpy arrays."""
     fn = make_eval_fn(model, env, net_cfg, episodes, max_steps)
 
-    def evaluator(generator: Optional[torch.Generator] = None,
+    def evaluator(generator: Optional[Threefry] = None,
                   draws: Optional[ResetDraws] = None) -> Dict[str, np.ndarray]:
         return {k: v.cpu().numpy() for k, v in fn(generator, draws).items()}
 
@@ -95,7 +96,7 @@ def make_evaluator(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
 
 
 def evaluate(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
-             generator: Optional[torch.Generator] = None, episodes: int = 100,
+             generator: Optional[Threefry] = None, episodes: int = 100,
              max_steps: int = 500,
              draws: Optional[ResetDraws] = None) -> Dict[str, np.ndarray]:
     """One evaluation: make_evaluator(...)(generator, draws)."""

@@ -82,12 +82,12 @@ def _obs_to_model(obs: np.ndarray, channel_first: bool = True) -> np.ndarray:
 
 
 def draw_host_noise(net_cfg: NetConfig, num_steps: int, num_envs: int,
-                    num_actions: int, generator: torch.Generator,
+                    num_actions: int, generator: noise_mod.Threefry,
                     device) -> HostNoise:
     """Gumbel (discrete) or standard normal (continuous) noise."""
     if net_cfg.continuous:
         def draw(shape):
-            return torch.randn(shape, generator=generator, device=device)
+            return noise_mod.normal(shape, generator, device)
     else:
         def draw(shape):
             return noise_mod.gumbel(shape, generator, device)
@@ -214,10 +214,10 @@ class HostTrainer:
         self.action_high = action_high
         self.two_player = model.player1 is not None
         self.device = next(model.parameters()).device
-        model.to("cpu").reset_parameters(torch.Generator().manual_seed(seed))
+        model.to("cpu").reset_parameters(noise_mod.generator(seed, "cpu"))
         model.to(self.device)
         self.opt = make_optimizer_for(model, tcfg)
-        self.generator = torch.Generator().manual_seed(seed + 1)
+        self.generator = noise_mod.generator(seed + 1, "cpu")
         self._update = make_host_update(model, net_cfg, tcfg, self.opt,
                                         self.two_player)
         b = len(pool)

@@ -62,10 +62,14 @@ def bootstrap_values(model: DuelingModel, carry: TrainCarry,
 
 
 def draw_step_noise(num_steps: int, num_envs: int, num_actions: int,
-                    generator: torch.Generator, device) -> StepNoise:
+                    generator: noise_mod.Threefry, device,
+                    rows: Optional[Tuple[int, int]] = None) -> StepNoise:
+    """The step's noise for `num_envs` rows (rows lo..hi-1 of it with
+    `rows`; the generator advances as for all)."""
     return StepNoise(
-        draw_action_noise(num_steps, num_envs, num_actions, generator, device),
-        noise_mod.gumbel((num_envs, num_actions), generator, device))
+        draw_action_noise(num_steps, num_envs, num_actions, generator, device,
+                          rows),
+        noise_mod.gumbel((num_envs, num_actions), generator, device, rows))
 
 
 def metric_sums(loss: torch.Tensor, stats, traj: Trajectory,
@@ -115,9 +119,10 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
     `pool_blocks` d > 1: blocked autoreset (``run_rollout``), the pointer
     a (d,) tensor; one process only. `mesh`: this process is one of W
     data-parallel ranks and `carry` holds its block of the tcfg.num_envs
-    rows. Every rank draws the global step's randomness from its generator
-    (the same on every rank: the action and bootstrap noise of all rows,
-    the draws of all pool rows) and keeps its own rows; it resets only its
+    rows. Every rank's generator takes the global step's counters (the
+    same on every rank) and hashes only its own rows' (the action and
+    bootstrap noise of its rows, the draws of its block of the pool), so
+    its draws are those rows of the global draw; it resets only its
     block of the pool, and its gradients and metric sums are reduced over
     the ranks in one all-reduce. W ranks so compute what one process
     computes with pool_blocks = W, and every rank's generator stays in one
@@ -140,11 +145,12 @@ def make_train_step(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
         if pool is not None:
             pool, pool_ptr = pool[:2], pool[2]
         n = carry.obs_stack.shape[0] * mesh.world
+        lo, hi = mesh.rows(n)
         if noise is None:
             noise = draw_step_noise(tcfg.num_steps, n, env.num_actions,
-                                    carry.generator, env.device)
-        lo, hi = mesh.rows(n)
-        noise = StepNoise(noise.actions[:, lo:hi], noise.bootstrap[lo:hi])
+                                    carry.generator, env.device, (lo, hi))
+        else:
+            noise = StepNoise(noise.actions[:, lo:hi], noise.bootstrap[lo:hi])
         if pool is None:
             pool = env.reset_batch(tcfg.reset_pool, carry.generator,
                                    mesh.rows(tcfg.reset_pool))
@@ -181,11 +187,11 @@ def init_pool_ptr(pool_blocks: int = 1, device="cuda") -> torch.Tensor:
 
 def make_pool_fn(env: TrackEnv, tcfg: TrainConfig, mesh: Mesh = Mesh()):
     """pool_fn(generator) -> (EnvState[P], obs[P]): the reset pool; over
-    several ranks, this rank's block of it (the draws of all P rows are
-    made)."""
+    several ranks, this rank's block of it (the generator advances as for
+    all P rows)."""
     rows = mesh.rows(tcfg.reset_pool)
 
-    def pool_fn(generator: torch.Generator):
+    def pool_fn(generator: noise_mod.Threefry):
         return env.reset_batch(tcfg.reset_pool, generator, rows)
 
     return pool_fn
@@ -198,12 +204,12 @@ class LearnerState(NamedTuple):
 
 
 def init_learner(model: DuelingModel, env: TrackEnv, net_cfg: NetConfig,
-                 tcfg: TrainConfig, generator: torch.Generator,
+                 tcfg: TrainConfig, generator: noise_mod.Threefry,
                  mesh: Mesh = Mesh()) -> LearnerState:
     """Initialize the model's parameters, the optimizer and the env carry,
     all from `generator` (which the carry then keeps). Over several ranks
-    the carry is this rank's block of the tcfg.num_envs rows (all are
-    drawn) and the parameters are rank 0's."""
+    the carry is this rank's block of the tcfg.num_envs rows (the
+    generator advances as for all) and the parameters are rank 0's."""
     model.reset_parameters(generator)
     mesh.broadcast_(model.parameters())
     opt = make_optimizer_for(model, tcfg)

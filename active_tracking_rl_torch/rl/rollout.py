@@ -39,7 +39,7 @@ class TrainCarry:
     obs_stack: torch.Tensor        # (B, 2, k, H, W) uint8
     hx: torch.Tensor               # (B, 2, R) float32
     cx: torch.Tensor               # (B, 2, R) float32
-    generator: torch.Generator     # every draw of the next iterations
+    generator: noise_mod.Threefry     # every draw of the next iterations
 
 
 class Trajectory(NamedTuple):
@@ -69,10 +69,10 @@ def obs_to_model(obs_stack: torch.Tensor) -> torch.Tensor:
 
 
 def init_carry(env: TrackEnv, net_cfg: NetConfig, num_envs: int,
-               generator: torch.Generator, chunk_max: int = 4096,
+               generator: noise_mod.Threefry, chunk_max: int = 4096,
                rows: Optional[Tuple[int, int]] = None) -> TrainCarry:
-    """The carry of `num_envs` fresh episodes; with `rows` = (lo, hi) all
-    of them are drawn and only rows lo..hi-1 kept (a rank's block)."""
+    """The carry of `num_envs` fresh episodes; with `rows` = (lo, hi) only
+    rows lo..hi-1 (a rank's block; the generator advances as for all)."""
     state, obs = env.reset_batch_chunked(num_envs, generator, chunk_max,
                                          rows)
     hx = torch.zeros((state.num_rows, 2, net_cfg.rnn_out),
@@ -82,10 +82,12 @@ def init_carry(env: TrackEnv, net_cfg: NetConfig, num_envs: int,
 
 
 def draw_action_noise(num_steps: int, num_envs: int, num_actions: int,
-                      generator: torch.Generator, device) -> torch.Tensor:
-    """(T, B, 2, A) Gumbel noise: each player's sampling noise per step."""
+                      generator: noise_mod.Threefry, device,
+                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(T, B, 2, A) Gumbel noise: each player's sampling noise per step
+    (with `rows` = (lo, hi), the block of rows lo..hi-1 of B)."""
     return noise_mod.gumbel((num_steps, num_envs, 2, num_actions), generator,
-                            device)
+                            device, rows, dim=1)
 
 
 def run_rollout(model: DuelingModel, env: TrackEnv, tcfg: TrainConfig,

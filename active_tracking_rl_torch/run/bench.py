@@ -45,6 +45,7 @@ from active_tracking_rl_torch.config import (NetConfig, TrainConfig,
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import DuelingModel, build_model
 from active_tracking_rl_torch.ops import flood
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
                                                  make_pool_fn, make_train_step)
 from active_tracking_rl_torch.rl.rollout import TrainCarry
@@ -69,7 +70,7 @@ class Bench:
     #: the loss's train mode: train_mode, or -1 for any negative one
     mode: int
     #: the generator of init_learner, which the carry keeps
-    generator: torch.Generator
+    generator: noise.Threefry
     #: step(carry, mode, pool=None) of learner.make_train_step
     train_step: Callable
     carry: TrainCarry
@@ -128,7 +129,7 @@ def build_bench(num_envs: int = 4096, num_steps: int = 20,
         ecfg = dataclasses.replace(ecfg, flood_backend=flood_backend)
     env = TrackEnv(ecfg, dev)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = noise.generator(0, dev)
     state = init_learner(model, env, ncfg, tcfg, gen)
     step = make_train_step(model, env, ncfg, tcfg, state.opt)
     return Bench(env, model, tcfg, ncfg, dev, pool_refresh,

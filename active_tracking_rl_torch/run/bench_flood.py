@@ -47,9 +47,9 @@ def flood_inputs(env_id: str, rows: int, device
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`rows` level-0 maps of `env_id` and GOALS distinct free cells each."""
     ecfg = parse_env_id(env_id)
-    gen = torch.Generator(device=device).manual_seed(3)
+    gen = noise.generator(3, device)
     mz = maps.generate_map(ecfg, maps.draw_map(ecfg, rows, gen, device))
-    gen = torch.Generator(device=device).manual_seed(4)
+    gen = noise.generator(4, device)
     gumbel = noise.gumbel((rows, ecfg.maze_size ** 2), gen, device)
     return mz, maps.sample_free_cells(gumbel, mz, GOALS)
 

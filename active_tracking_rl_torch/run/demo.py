@@ -30,6 +30,7 @@ from active_tracking_rl_torch.envs.bridge import GymTrackEnv
 from active_tracking_rl_torch.envs.env import ResetDraws
 from active_tracking_rl_torch.envs.render import save_episode_gif
 from active_tracking_rl_torch.models.dueling import DuelingModel, build_model
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.utils.platform import (pin_float32,
                                                      resolve_device)
@@ -98,7 +99,7 @@ def main(argv=None) -> List[Tuple[List[np.ndarray], int, float]]:
         ecfg = dataclasses.replace(ecfg, center_full_obs=True)
     ncfg = NetConfig.from_name(args.network, rnn_out=args.rnn_out)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=device,
-                        generator=torch.Generator(device=device).manual_seed(0))
+                        generator=noise.generator(0, device))
     load_params(model, args.load_model_dir, args.load_tracker,
                 args.load_target)
 

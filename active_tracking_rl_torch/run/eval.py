@@ -27,6 +27,7 @@ import torch
 from active_tracking_rl_torch.config import NetConfig, parse_env_id
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.rl.evaluate import evaluate
 from active_tracking_rl_torch.utils.logging import close_logger, setup_logger
@@ -61,8 +62,7 @@ def load_model(args, ecfg, device):
     ncfg = NetConfig.from_name(args.network, rnn_out=args.rnn_out,
                                stack_frames=args.stack_frames)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=device,
-                        generator=torch.Generator(device=device)
-                        .manual_seed(args.seed))
+                        generator=noise.generator(args.seed, device))
     load_params(model, args.load_model_dir, args.load_tracker,
                 args.load_target)
     return model, ncfg
@@ -82,8 +82,7 @@ def main(argv=None):
             ecfg = dataclasses.replace(ecfg, center_full_obs=True)
         model, ncfg = load_model(args, ecfg, device)
         metrics = evaluate(model, TrackEnv(ecfg, device), ncfg,
-                           torch.Generator(device=device)
-                           .manual_seed(args.seed), args.num_episodes)
+                           noise.generator(args.seed, device), args.num_episodes)
         log.info(
             "R_mean: {0}, R_std: {1}, EL_mean: {2:.2f}, EL_std {3:.2f}, "
             "R_step: {4}, S_rate: {5}".format(

@@ -24,6 +24,7 @@ import torch
 from active_tracking_rl_torch.config import NetConfig, parse_env_id
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.rl.evaluate import make_evaluator
 from active_tracking_rl_torch.utils.platform import pin_float32
@@ -78,13 +79,11 @@ def main(argv=None):
 
     def run_cell(env_id, model, evaluator, tracker_name, tracker_path,
                  target_path=None):
-        model.reset_parameters(torch.Generator(device=device)
-                               .manual_seed(args.seed))
+        model.reset_parameters(noise.generator(args.seed, device))
         load_params(model, None, tracker_path, target_path)
         rets, lens, succs, per_seed = [], [], [], []
         for s in range(args.eval_seeds):
-            ev = evaluator(torch.Generator(device=device)
-                           .manual_seed(args.seed + 101 * s))
+            ev = evaluator(noise.generator(args.seed + 101 * s, device))
             rets.append(ev["ep_returns"][:, 0])
             lens.append(ev["ep_lens"])
             succs.append(ev["ep_success"])

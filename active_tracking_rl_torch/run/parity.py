@@ -6,10 +6,11 @@ Port of ``active_tracking_rl_tpu/run/parity.py``, in its two tiers:
    recorded random-policy trajectory (maps, spawns, scripted-opponent
    actions, observations, rewards, termination) bit for bit. ``record``
    writes the golden ``.npz``; ``verify`` replays it and diffs every array.
-   The reset draws come from a ``torch.Generator`` on the trace's device
+   The reset draws come from a ``noise.Threefry`` on the trace's device
    (:func:`rollout_trace` also takes them at a seam, as the tests do with
-   the JAX package's), and the card's generator streams differ from the
-   CPU's, so a trace replays on the device type it was recorded on.
+   the JAX package's); its draws are the same on the card and the CPU,
+   but the card's float arithmetic may differ in the last ulp, so a trace
+   replays bit for bit on the device type it was recorded on.
 2. **Cross-validation against the reference env (semantic)**: ``cross-check``
    drives the reference package's ``Track1v1Env`` with a deterministic
    global RNG and checks, on every transition, the invariants both engines
@@ -43,6 +44,7 @@ import torch
 
 from active_tracking_rl_torch.config import parse_env_id
 from active_tracking_rl_torch.envs.env import ResetDraws, TrackEnv
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.utils.platform import (pin_float32,
                                                      resolve_device)
 
@@ -65,7 +67,7 @@ def rollout_trace(env_id: str, seed: int, episodes: int = 2,
     """
     cfg = parse_env_id(env_id)
     env = TrackEnv(cfg, resolve_device(device))
-    gen = torch.Generator(device=env.device).manual_seed(seed)
+    gen = noise.generator(seed, env.device)
     rng = np.random.default_rng(policy_seed)
     out = {k: [] for k in TRACE_KEYS}
     for ep in range(episodes):

@@ -24,7 +24,7 @@ Port of the repository's root ``profile_iter.py``, with its keys:
 
 Each part runs 2 untimed calls, then 5 timed ones between two
 ``torch.cuda.synchronize()`` calls, as the JAX script's ``timeit``; randomness comes from
-``torch.Generator``s seeded as the JAX script's keys. Prints one JSON dict.
+``noise.Threefry``s seeded as the JAX script's keys. Prints one JSON dict.
 
     python -m active_tracking_rl_torch.run.profile_iter
     python -m active_tracking_rl_torch.run.profile_iter --device cpu \\
@@ -61,8 +61,8 @@ POOL = NUM_ENVS // 8
 ENVS = ("Track2D-BlockPartialNav-v0", "Track2D-BlockPartialRam-v0")
 
 
-def _gen(device: torch.device, seed: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
+def _gen(device: torch.device, seed: int) -> noise.Threefry:
+    return noise.generator(seed, device)
 
 
 def timeit(fn: Callable, device: torch.device, iters: int = 5,
@@ -79,7 +79,7 @@ def timeit(fn: Callable, device: torch.device, iters: int = 5,
     return (time.perf_counter() - t0) / iters
 
 
-def pool_parts(env: TrackEnv, rows: int, generator: torch.Generator,
+def pool_parts(env: TrackEnv, rows: int, generator: noise.Threefry,
                iters: int = 5, warmup: int = 2) -> Dict[str, float]:
     """Seconds per call of the reset pool's parts, in reset's order, on one
     set of draws of `rows` rows: the map, the spawns, the scripted tape
@@ -181,7 +181,7 @@ def core_decomposition(num_envs: int, pool: int, device, iters: int = 5,
     def autoreset_scan():
         s, ptr = carry.env_state, init_pool_ptr(device=device)
         for _ in range(t_steps):
-            done = torch.rand((n,), generator=gen_done, device=device) < 0.04
+            done = noise.uniform((n,), gen_done, device) < 0.04
             s, o, ptr = env.autoreset(s, obs0, done, ext[0], ext[1], ptr)
         return o
 

@@ -39,6 +39,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from active_tracking_rl_torch.ops import noise
+
 #: the device event categories of a torch.profiler trace, by priority
 DEVICE_CATEGORIES = {"kernel": "kernel", "gpu_memcpy": "memcpy",
                      "gpu_memset": "memset"}
@@ -186,9 +188,9 @@ def capture(num_envs: int, iters: int, env_id: str, network: str,
     env = TrackEnv(ecfg, dev)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=dev)
     state = init_learner(model, env, ncfg, tcfg,
-                         torch.Generator(device=dev).manual_seed(0))
+                         noise.generator(0, dev))
     pool = (*make_pool_fn(env, tcfg)(
-        torch.Generator(device=dev).manual_seed(9)),
+        noise.generator(9, dev)),
         init_pool_ptr(device=dev))
     step = make_train_step(model, env, ncfg, tcfg, state.opt)
     carry = state.carry

@@ -57,7 +57,7 @@ def run_episodes(env: TrackEnv, episodes: int, seed: int,
                  gif: Optional[str] = None) -> list:
     """`episodes` random episodes; returns [(length, rewards (agents,))]."""
     cfg = env.cfg
-    gen = torch.Generator(device=env.device).manual_seed(seed)
+    gen = noise.generator(seed, env.device)
     rng = np.random.default_rng(seed)
     frames, out = [], []
     for ep in range(episodes):
@@ -86,7 +86,7 @@ def run_fps(env: TrackEnv, n: int, seconds: float, seed: int) -> dict:
     for `seconds` (after one warm-up block); returns the env-steps/s, the
     blocks and the seconds."""
     cfg = env.cfg
-    gen = torch.Generator(device=env.device).manual_seed(seed)
+    gen = noise.generator(seed, env.device)
     state, _ = env.reset_batch_chunked(n, gen)
 
     def run_block(state):

@@ -43,7 +43,8 @@ Then `--resume <run dir>` continues that run exactly; `--load-model-dir
 <all-best.msgpack>` warm-starts the parameters only.
 
 The pool generator of `--pool-refresh` K > 1 and the eval generator are
-seeded from (seed + 777, iteration) and (seed + 999, iteration), so their
+keyed by seed + 777 and seed + 999 folded with the iteration
+(``noise.Threefry.fold_in``), so their
 draws depend only on the iteration, and the pool is refreshed at
 iterations 1, K + 1, 2K + 1, ...; the carry's generator state, the pool
 pointer and the rest of ``train_state.pt`` make the resumed run equal the
@@ -68,6 +69,7 @@ from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.envs.types import EnvState
 from active_tracking_rl_torch.models.dueling import (build_model,
                                                      params_to_flax)
+from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.parallel.mesh import (Mesh, MeshSpec,
                                                     host_init, make_mesh,
                                                     shutdown)
@@ -214,10 +216,10 @@ def net_config_from_args(args, tcfg: TrainConfig) -> NetConfig:
     return dataclasses.replace(ncfg, bf16=tcfg.bf16)
 
 
-def iteration_generator(base_seed: int, it: int, device) -> torch.Generator:
-    """A generator whose draws depend only on (base_seed, it)."""
-    seed = np.random.SeedSequence([base_seed, it]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(seed[0]))
+def iteration_generator(base_seed: int, it: int, device) -> noise.Threefry:
+    """A generator whose draws depend only on (base_seed, it): the key of
+    base_seed folded with it."""
+    return noise.generator(base_seed, device).fold_in(it)
 
 
 def carry_state(carry: TrainCarry, mesh: Mesh = Mesh()) -> Dict[str, Any]:
@@ -232,7 +234,7 @@ def carry_state(carry: TrainCarry, mesh: Mesh = Mesh()) -> Dict[str, Any]:
             "generator": carry.generator.get_state()}
 
 
-def restore_carry(saved: Dict[str, Any], generator: torch.Generator,
+def restore_carry(saved: Dict[str, Any], generator: noise.Threefry,
                   rows: Optional[Tuple[int, int]] = None) -> TrainCarry:
     """The carry of `carry_state`, its rows lo..hi-1 if `rows` is given;
     `generator` takes its saved state (a CPU byte tensor, whatever device
@@ -325,7 +327,7 @@ def _build(args, tcfg: TrainConfig, ncfg: NetConfig, device: torch.device,
     env = TrackEnv(ecfg, device)
     env_base = TrackEnv(base_cfg, device)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device=device)
-    generator = torch.Generator(device=device).manual_seed(tcfg.seed)
+    generator = noise.generator(tcfg.seed, device)
     state = init_learner(model, env, ncfg, tcfg, generator, mesh)
     if args.load_model_dir:
         load_params(model, args.load_model_dir)

@@ -33,6 +33,7 @@ from active_tracking_rl_tpu.models.dueling import build_model as jbuild
 from active_tracking_rl_tpu.rl.checkpoint import load_file as j_load_file
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.models.dueling import build_model, params_to_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.checkpoint import (TRAIN_STATE_FILE,
                                                     CheckpointManager,
                                                     load_file, load_params,
@@ -89,7 +90,7 @@ def test_codec_scalars_and_lengths():
 def test_jax_reads_the_port_parameter_files(tmp_path, name):
     hw = (82, 82) if "cnn" in name else (13, 13)
     model = build_model(NetConfig.from_name(name), 4, hw, device="cpu",
-                        generator=torch.Generator().manual_seed(5))
+                        generator=Threefry().manual_seed(5))
     params = params_to_flax(model.state_dict(), model.cfg)
     ckpt = CheckpointManager(str(tmp_path), split=True)
     assert ckpt.save(params, None, score=1.0, n_iter=3)
@@ -140,7 +141,7 @@ def test_load_params_full_tracker_and_target(tmp_path):
     both players; a file of another network is refused."""
     net = NetConfig.from_name("tat-maze-lstm")
     model = build_model(net, 4, (13, 13), device="cpu",
-                        generator=torch.Generator().manual_seed(0))
+                        generator=Threefry().manual_seed(0))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     load_params(model, load_tracker=str(RAM / "tracker-best.msgpack"))
     tracker = load_file(str(RAM / "tracker-best.msgpack"))
@@ -149,7 +150,7 @@ def test_load_params_full_tracker_and_target(tmp_path):
                for k, v in before.items() if k.startswith("player1"))
 
     other = build_model(net, 4, (13, 13), device="cpu",
-                        generator=torch.Generator().manual_seed(1))
+                        generator=Threefry().manual_seed(1))
     save_file(str(tmp_path / "all.msgpack"),
               params_to_flax(other.state_dict(), net))
     load_params(model, load_model=str(tmp_path / "all.msgpack"))

@@ -27,6 +27,7 @@ from active_tracking_rl_torch.models import heads
 from active_tracking_rl_torch.models.dueling import (build_model,
                                                      params_from_flax,
                                                      params_to_flax)
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.host_loop import wrap_action
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -209,7 +210,7 @@ def test_converters_round_trip(name, single):
 def test_reset_parameters_initializes_the_sigma_head_and_no_player1():
     tm = build_model(NetConfig.from_name("maze-lstm-continuous"), A, HW,
                      device="cpu", single=True,
-                     generator=torch.Generator().manual_seed(0))
+                     generator=Threefry().manual_seed(0))
     assert tm.player1 is None
     sigma = tm.player0.sigma.requires_grad_(False)
     bound = np.sqrt(6.0 / (128 + A))

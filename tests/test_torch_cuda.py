@@ -3,9 +3,13 @@ also at the caps of the bit-parallel BFS kernel (csrc/flood_bfs.cu) behind
 flood_sweep, flood_sweep16 and flood_relax; one train step of the K=16
 Nav recipe at its batch (1024 envs, 20 steps, a pool of 256, remat on as
 the trainer CLI trains) on the card against the CPU, every gradient and
-every updated parameter (chip_smoke.py:check_update); and the draws that
-the card's generator (Philox) makes in production, held to the CPU
-generator's laws (which tests/test_torch_draw_laws.py holds to JAX's).
+every updated parameter, the CPU taking the card's relu decisions where
+the two take one apart (chip_smoke.py:check_update); the draws that
+ops/noise.py's generator (threefry2x32) makes on the card, equal to the
+CPU's bit for bit (each device's Gumbel noise within
+chip_smoke.GUMBEL_ULP ulp of float64's transform of the same bits), at
+production's shapes (chip_smoke.py:check_draws); and those draws held to
+the CPU's laws (which tests/test_torch_draw_laws.py holds to JAX's).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (the suite's conftest.py needs JAX):
@@ -45,11 +49,11 @@ def _inputs(env_id, rows, g, dev):
     """Maps of the id's family from the port's generator, g free goals per
     row with (-1,-1) pads on every third row and a wall goal on the next."""
     cfg = tconfig.parse_env_id(env_id)
-    gen = torch.Generator(device=dev).manual_seed(len(env_id))
+    gen = noise.generator(len(env_id), dev)
     mz = maps.generate_map(cfg, maps.draw_map(cfg, rows, gen, dev))
     s = cfg.maze_size
-    goals = maps.sample_free_cells(
-        torch.rand((rows, s * s), generator=gen, device=dev), mz, g)
+    goals = maps.sample_free_cells(noise.uniform((rows, s * s), gen, dev),
+                                   mz, g)
     goals[::3, -2:] = -1
     goals[1::3, 0] = 0
     return mz.contiguous(), goals.contiguous()
@@ -94,8 +98,7 @@ def test_kernels_match_twins_at_the_caps_on_the_card(iters):
     mz = torch.from_numpy(np.stack([perfect_maze(81, rng)
                                     for _ in range(5)])).to(dev)
     goals = maps.sample_free_cells(
-        torch.rand((5, 81 * 81), generator=torch.Generator(device=dev)
-                   .manual_seed(iters), device=dev), mz, 7)
+        noise.uniform((5, 81 * 81), noise.generator(iters, dev), dev), mz, 7)
     goals[0, -1] = -1
     goals[1, 0] = 0
     _check_all(mz, goals.contiguous(), iters)
@@ -129,8 +132,8 @@ def test_sweep16_matches_twin_at_the_caps_on_the_card(side):
         mz[i, :odd, :odd] = perfect_maze(odd, rng)
     mz = torch.from_numpy(mz).to(dev)
     goals = maps.sample_free_cells(
-        torch.rand((4, side * side), generator=torch.Generator(device=dev)
-                   .manual_seed(side), device=dev), mz, 5)
+        noise.uniform((4, side * side), noise.generator(side, dev), dev),
+        mz, 5)
     goals[0, -1] = -1
     goals = goals.contiguous()
     for iters in (0, 1, 15, 16, 17, 255, 256):
@@ -182,7 +185,7 @@ def test_update_matches_cpu_at_the_recipe_batch(low_entropy):
     pin_float32()
     res = chip_smoke.check_update(torch, chip_smoke.RECIPE_ENVS,
                                   chip_smoke.RECIPE_POOL,
-                                  torch.Generator().manual_seed(0),
+                                  noise.generator(0),
                                   low_entropy=low_entropy)
     print(chip_smoke.update_text(res))
 
@@ -198,8 +201,7 @@ def test_card_action_draws_follow_the_cpu_law(logits):
     n, a = 1 << 22, len(logits)
     got = {}
     for dev in ("cuda", "cpu"):
-        g = noise.gumbel((n, a), torch.Generator(device=dev).manual_seed(4),
-                         dev)
+        g = noise.gumbel((n, a), noise.generator(4, dev), dev)
         x = torch.tensor(logits, device=dev).expand(n, a)
         got[dev] = torch.bincount(sample_discrete(x, g).action,
                                   minlength=a).cpu().numpy()
@@ -217,7 +219,7 @@ def test_card_reset_draws_follow_the_cpu_law():
     cfg = tconfig.parse_env_id("Track2D-BlockPartialNav-v0")
     walls, offsets, shares = {}, {}, {}
     for dev, tapes in (("cuda", 256), ("cpu", 64)):
-        gen = torch.Generator(device=dev).manual_seed(9)
+        gen = noise.generator(9, dev)
         mz = maps.generate_map(cfg, maps.draw_map(cfg, 1024, gen, dev))
         walls[dev] = mz[:, 1:-1, 1:-1].float().mean((1, 2)).cpu().numpy()
         pos, _ = maps.sample_spawns(cfg, mz, maps.draw_spawns(cfg, 1024, gen,
@@ -241,16 +243,30 @@ def test_card_reset_draws_follow_the_cpu_law():
 
 @pytest.mark.cuda
 def test_card_window_generators_draw_apart():
-    """run/train.py's pool windows and evals seed a card generator from
-    (seed, iteration): each window's draws differ from the others'."""
+    """run/train.py's pool windows and evals key a generator by (seed,
+    iteration): each window's draws on the card differ from the others'."""
     _card()
     from active_tracking_rl_torch.run.train import POOL_SEED, \
         iteration_generator
-    draws = [torch.rand(4096, generator=iteration_generator(1 + POOL_SEED, w,
-                                                            "cuda"),
-                        device="cuda") for w in (1, 17, 33, 49)]
+    draws = [noise.uniform((4096,), iteration_generator(1 + POOL_SEED, w,
+                                                        "cuda"), "cuda")
+             for w in (1, 17, 33, 49)]
     for i in range(len(draws)):
         for j in range(i):
             assert not torch.equal(draws[i], draws[j]), (i, j)
             r = torch.corrcoef(torch.stack([draws[i], draws[j]]))[0, 1]
             assert abs(float(r)) < 0.1, (i, j, float(r))
+
+
+@pytest.mark.cuda
+def test_card_draws_equal_the_cpus():
+    """ops/noise.py's bits, uniforms, integers and permutations drawn on the
+    card equal the CPU's bit for bit, and its Gumbel noise on either device
+    lies within chip_smoke.GUMBEL_ULP ulp of max(|g|, 1) of float64's
+    -log(-log u) of the same u; so do the draws of one K=16
+    Nav train step at the recipe's batch and of one 256-row Nav pool."""
+    _card()
+    import chip_smoke
+    tally = chip_smoke.check_draws(torch)
+    print(tally)
+    assert tally["values"] > 0

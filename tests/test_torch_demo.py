@@ -25,6 +25,7 @@ from active_tracking_rl_tpu.run import demo as jdemo
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.envs.bridge import GymTrackEnv
 from active_tracking_rl_torch.models.dueling import build_model
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.run import demo
 from tests.torch_draws import reset_draws, torch_cfg
@@ -49,7 +50,7 @@ def test_episode_matches_the_jax_demo(monkeypatch, capsys):
     ncfg = NetConfig.from_name("tat-maze-lstm")
     cfg = torch_cfg(jparse(ENV))
     model = build_model(ncfg, cfg.num_actions, cfg.obs_shape, device="cpu",
-                        generator=torch.Generator().manual_seed(0))
+                        generator=Threefry().manual_seed(0))
     load_params(model, None, *FILES[1::2])
     _, k = jax.random.split(jax.random.PRNGKey(SEED))
     frames, length, ret = demo.run_episode(

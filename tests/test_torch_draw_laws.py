@@ -1,8 +1,8 @@
 """The port's own random draws held to the JAX package's distributions.
 
 Every other port test feeds JAX's draws at the seam (tests/torch_draws.py),
-so none of them shows that what the port draws from a ``torch.Generator``
-in production follows the laws that ``jax.random`` follows. Here both
+so none of them shows that what the port draws from its generator
+(``ops/noise.py``'s threefry2x32) in production follows the laws that ``jax.random`` follows. Here both
 packages draw from their own generators at the sizes of the Nav recipes
 (Track2D-BlockPartialNav-v0: 16 goal candidates, 256 flood iterations,
 tapes of 512 ticks) and two-sample tests compare the results, with the KS
@@ -39,6 +39,7 @@ from active_tracking_rl_torch.envs import maps
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.heads import sample_discrete
 from active_tracking_rl_torch.ops import noise
+from active_tracking_rl_torch.ops.noise import Threefry
 from tests.torch_stats import (OFFSET_CATS, chi2_2samp_ok, counts,
                                ks_2samp_ok)
 
@@ -54,7 +55,7 @@ SATURATED = [(0.0, -4.0, -8.0, -12.0), (0.0, -6.0, -10.0, -10.0)]
 
 def _port_maps(n: int, seed: int) -> np.ndarray:
     cfg = parse_env_id(ENV_ID)
-    gen = torch.Generator().manual_seed(seed)
+    gen = Threefry().manual_seed(seed)
     return maps.generate_map(cfg, maps.draw_map(cfg, n, gen, "cpu")).numpy()
 
 
@@ -70,7 +71,7 @@ def _wall_fraction(mazes: np.ndarray) -> np.ndarray:
 
 def _port_offsets(n: int, seed: int):
     cfg = parse_env_id(ENV_ID)
-    gen = torch.Generator().manual_seed(seed)
+    gen = Threefry().manual_seed(seed)
     maze = maps.generate_map(cfg, maps.draw_map(cfg, n, gen, "cpu"))
     pos, _ = maps.sample_spawns(cfg, maze, maps.draw_spawns(cfg, n, gen, "cpu"))
     return [tuple(o) for o in (pos[:, 1] - pos[:, 0]).tolist()]
@@ -97,7 +98,7 @@ def _action_shares(tapes: np.ndarray, num_actions: int) -> np.ndarray:
 def _port_actions(logits, n: int, seed: int, shift: float = 0.0):
     """Actions of sample_discrete under the production Gumbel noise; `shift`
     adds to the second action's noise (a skewed draw)."""
-    gen = torch.Generator().manual_seed(seed)
+    gen = Threefry().manual_seed(seed)
     a = len(logits)
     g = noise.gumbel((n, a), gen, "cpu")
     g[:, 1] += shift
@@ -132,7 +133,7 @@ def test_nav_tape_action_law():
     jstate, _ = jax.jit(lambda k: JaxEnv(jcfg).reset_batch(k, TAPES))(
         jax.random.PRNGKey(3))
     state, _ = TrackEnv(parse_env_id(ENV_ID), "cpu").reset_batch(
-        TAPES, torch.Generator().manual_seed(3))
+        TAPES, Threefry().manual_seed(3))
     a = jcfg.num_actions
     mine = _action_shares(state.tape.numpy(), a)
     theirs = _action_shares(np.asarray(jstate.tape), a)

@@ -24,6 +24,7 @@ from active_tracking_rl_torch.envs import env as tenv
 from active_tracking_rl_torch.envs import maps as tmaps
 from active_tracking_rl_torch.envs import opponents as topp
 from active_tracking_rl_torch.envs.observe import partial_obs
+from active_tracking_rl_torch.ops.noise import Threefry
 from tests import oracles
 from tests.torch_draws import (assert_state_equal, batch_draws, map_draws,
                                nav_draws, reset_draws, spawn_draws, torch_cfg,
@@ -143,7 +144,7 @@ def test_nav_tape_walks_legal_moves():
     """Simulating the tape with the oracle dynamics stays on free cells."""
     cfg = jcfg(tape_len=200)
     tc = torch_cfg(cfg)
-    gen = torch.Generator().manual_seed(0)
+    gen = Threefry().manual_seed(0)
     draws = tenv.draw_reset(tc, 2, gen, "cpu")
     state, _ = tenv.reset(tc, draws)
     for row in range(2):
@@ -189,7 +190,7 @@ def test_partial_obs_matches_oracle():
     """Random positions, overlaps and agents outside each other's window."""
     cfg = tconfig.parse_env_id("Track2D-BlockPartialPZR-v0")
     rng = np.random.RandomState(1)
-    gen = torch.Generator().manual_seed(1)
+    gen = Threefry().manual_seed(1)
     maze = tmaps.generate_block_map(cfg, tmaps.draw_map(cfg, 1, gen, "cpu"))[0]
     mp = torch.nn.functional.pad(maze, (6, 6, 6, 6), value=1)
     pos = rng.randint(1, 81, size=(64, 2, 2)).astype(np.int32)
@@ -227,15 +228,15 @@ def test_reset_batch_chunked():
     """One chunk is reset_batch exactly; several chunks give the same shapes,
     each chunk drawing its own rows."""
     env = tenv.TrackEnv(torch_cfg(jcfg()), "cpu")
-    a, ao = env.reset_batch(4, torch.Generator().manual_seed(3))
-    b, bo = env.reset_batch_chunked(4, torch.Generator().manual_seed(3))
+    a, ao = env.reset_batch(4, Threefry().manual_seed(3))
+    b, bo = env.reset_batch_chunked(4, Threefry().manual_seed(3))
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name))
     assert torch.equal(ao, bo)
-    c, co = env.reset_batch_chunked(5, torch.Generator().manual_seed(3),
+    c, co = env.reset_batch_chunked(5, Threefry().manual_seed(3),
                                     chunk_max=2)
     assert c.pos.shape == (5, 2, 2) and co.shape == (5, 2, 13, 13)
-    gen = torch.Generator().manual_seed(3)
+    gen = Threefry().manual_seed(3)
     first, _ = env.reset_batch(2, gen)
     assert torch.equal(c.maze[:2], first.maze)
 

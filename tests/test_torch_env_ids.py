@@ -16,6 +16,7 @@ from active_tracking_rl_tpu import config as jconfig
 from active_tracking_rl_tpu.envs.env import TrackEnv as JaxEnv
 from active_tracking_rl_torch import config as tconfig
 from active_tracking_rl_torch.envs import env as tenv
+from active_tracking_rl_torch.ops.noise import Threefry
 from tests.torch_draws import assert_state_equal, batch_draws, torch_cfg
 
 FAST = dict(nav_goal_candidates=4, flood_iters=96, tape_len=96)
@@ -60,7 +61,7 @@ def test_every_id_resets_and_steps(env_id):
     cfg = dataclasses.replace(tconfig.parse_env_id(env_id), tape_len=16,
                               nav_goal_candidates=2, flood_iters=32)
     env = tenv.TrackEnv(cfg, "cpu")
-    state, obs = env.reset_batch(2, torch.Generator().manual_seed(0))
+    state, obs = env.reset_batch(2, Threefry().manual_seed(0))
     assert obs.shape == (2,) + env.obs_shape and obs.dtype == torch.uint8
     state, obs, rew, done, _ = env.step(state, torch.zeros((2, 2),
                                                            dtype=torch.int32))

@@ -26,6 +26,7 @@ from active_tracking_rl_torch.envs import env as tenv
 from active_tracking_rl_torch.envs import maps as tmaps
 from active_tracking_rl_torch.envs import observe as tobs
 from active_tracking_rl_torch.envs import opponents as topp
+from active_tracking_rl_torch.ops.noise import Threefry
 from tests import oracles
 from tests.torch_draws import (assert_state_equal, map_draws, nav_draws,
                                ram_draws, reset_draws, torch_cfg)
@@ -80,7 +81,7 @@ def test_maze_walk_from_the_border_picks_among_valid_neighbours():
     neighbours, left, right and down in that order: draw 2 of [0, 3) walks
     down, walling the two cells below the start."""
     cfg = torch_cfg(jcfg("Track2D-MazePartialNav-v1"))
-    gen = torch.Generator().manual_seed(0)
+    gen = Threefry().manual_seed(0)
     draws = tmaps.draw_map(cfg, 1, gen, "cpu")
     draws.walk_start[0, 0] = torch.tensor([0, 10])
     draws.walk_pick[0, 0, 0, 1] = 2
@@ -103,7 +104,7 @@ def test_ram_tape_matches_jax(moore):
 def test_ram_burst_replaces_the_emitted_action():
     """A repeat-burst drawn on a tick is emitted on that very tick."""
     cfg = torch_cfg(jcfg("Track2D-BlockPartialRam-v0", tape_len=4))
-    gen = torch.Generator().manual_seed(0)
+    gen = Threefry().manual_seed(0)
     d = topp.draw_ram(cfg, 1, gen, "cpu")
     d.plan0[:] = 1
     d.len0[:] = 1
@@ -246,7 +247,7 @@ def test_moore_diagonal_wall_collision():
     """A diagonal into a wall stays and counts a collision, even with both
     cardinal neighbours free: only the destination cell is tested."""
     cfg = torch_cfg(jcfg("Track2D-EmptyPartialAdv-v0", action_type="Moore"))
-    gen = torch.Generator().manual_seed(1)
+    gen = Threefry().manual_seed(1)
     state, _ = tenv.reset(cfg, tenv.draw_reset(cfg, 1, gen, "cpu"))
     p = cfg.pob_size
     r, c = (int(x) + p for x in state.pos[0, 0])

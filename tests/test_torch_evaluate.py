@@ -18,7 +18,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 from flax import serialization
 
 from active_tracking_rl_tpu.config import NetConfig as JNetConfig
@@ -29,6 +28,7 @@ from active_tracking_rl_tpu.rl.evaluate import make_evaluator as j_evaluator
 from active_tracking_rl_torch.config import NetConfig, preset
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.evaluate import evaluate, make_evaluator
 from tests.torch_draws import batch_draws, torch_cfg
 
@@ -91,10 +91,10 @@ def test_evaluator_matches_jax(ecfg, source):
 
 
 def test_evaluate_draws_from_its_generator(ecfg):
-    """From a torch.Generator: the same seed gives the same episodes, another
+    """From a generator: the same seed gives the same episodes, another
     seed other ones; the metrics are consistent with the per-episode arrays."""
     model, env, tn = _port(_params("init"), ecfg)
-    runs = [evaluate(model, env, tn, torch.Generator().manual_seed(s),
+    runs = [evaluate(model, env, tn, Threefry().manual_seed(s),
                      EPISODES, MAX_STEPS) for s in (1, 1, 2)]
     assert all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
     assert not np.array_equal(runs[0]["ep_returns"], runs[2]["ep_returns"])

@@ -35,6 +35,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig, TrainConfig
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
                                                  make_pool_fn, make_train_step)
 from active_tracking_rl_torch.rl.optim import make_optimizer_for
@@ -81,7 +82,7 @@ def both_steps():
     tcarry = TrainCarry(torch_state(state),
                         torch.from_numpy(np.array(obs))[:, :, None],
                         torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
     ts = make_train_step(model, env, tn, tt, topt)
     tc1, tm1, tptr1 = ts(tcarry, 0, (torch_state(pool_state),
                                      torch.from_numpy(np.array(pool_obs)),
@@ -146,7 +147,7 @@ def test_slice_runs_from_its_own_generator():
                      train_mode=0)
     tn = NetConfig.from_name("maze-lstm", aux="none")
     model = build_model(tn, tc.num_actions, tc.obs_shape, device="cpu")
-    state = init_learner(model, env, tn, tt, torch.Generator().manual_seed(0))
+    state = init_learner(model, env, tn, tt, Threefry().manual_seed(0))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     ts = make_train_step(model, env, tn, tt, state.opt)
     carry = state.carry

@@ -36,6 +36,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig, TrainConfig, preset
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl import curriculum
 from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
                                                  make_train_step)
@@ -86,7 +87,7 @@ def both_runs():
     tcarry = TrainCarry(torch_state(state),
                         torch.from_numpy(np.array(obs))[:, :, None],
                         torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
     tpool = (torch_state(pool_state), torch.from_numpy(np.array(pool_obs)))
 
     opt_state, ptr, tptr = opt.init(params), jnp.int32(0), init_pool_ptr(
@@ -174,7 +175,7 @@ def test_advat_runs_from_its_own_generator_under_the_curriculum():
     env = TrackEnv(tc, "cpu")
     tn = NetConfig.from_name("tat-maze-lstm")
     model = build_model(tn, tc.num_actions, tc.obs_shape, device="cpu")
-    state = init_learner(model, env, tn, tt, torch.Generator().manual_seed(0))
+    state = init_learner(model, env, tn, tt, Threefry().manual_seed(0))
     ts = make_train_step(model, env, tn, tt, state.opt)
     cur, carry, modes = curriculum.CurriculumState.initial(tt), state.carry, []
     target = {k: v.clone() for k, v in model.player1.state_dict().items()}

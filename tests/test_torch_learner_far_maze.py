@@ -48,6 +48,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.envs.observe import observe
 from active_tracking_rl_torch.envs.types import EnvState
 from active_tracking_rl_torch.models.dueling import params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import init_pool_ptr
 from active_tracking_rl_torch.rl.rollout import TrainCarry
 from active_tracking_rl_torch.utils.logging import MetricWriter
@@ -116,7 +117,7 @@ def pair(request):
     tcarry = TrainCarry(tstate, tobs[:, :, None].repeat(1, 1, stack, 1, 1),
                         torch.zeros(B, 2, 128),
                         torch.zeros(B, 2, 128),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
 
     noise = step_noise(carry.key, T, B, tc.num_actions)
     params, opt_state, carry, m, ptr = step(

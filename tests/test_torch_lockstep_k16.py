@@ -42,6 +42,7 @@ import torch
 from active_tracking_rl_tpu.config import parse_env_id
 from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.models.dueling import params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import init_pool_ptr
 from active_tracking_rl_torch.rl.rollout import TrainCarry
 from tests.torch_draws import assert_state_equal, batch_draws, step_noise
@@ -76,7 +77,7 @@ def lockstep(num_envs: int, pool_rows: int, iters: int, stack: int,
     tstate, tobs = env.reset(batch_draws(ecfg, jax.random.PRNGKey(1), b))
     tcarry = TrainCarry(tstate, tobs[:, :, None].repeat(1, 1, stack, 1, 1),
                         torch.zeros(b, 2, 128), torch.zeros(b, 2, 128),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
     opt_state = opt.init(params)
     for it in range(1, iters + 1):
         if (it - 1) % REFRESH == 0:     # run/train.py's window, pointer 0

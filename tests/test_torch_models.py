@@ -23,6 +23,7 @@ from active_tracking_rl_tpu.models.recurrent import LSTMCell as JLSTMCell
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
 from active_tracking_rl_torch.models.heads import eval_discrete, sample_discrete
+from active_tracking_rl_torch.ops.noise import Threefry
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B = 8
@@ -147,7 +148,7 @@ def test_init_matches_reference_bounds():
     """U(-b, b) with b = sqrt(6 / (fan_in + fan_out)) for conv/fc, torch's
     1/sqrt(H) for the LSTM, zero biases: the same bounds as the JAX init."""
     tm = build_model(NetConfig.from_name("maze-lstm", aux="none"), 4, (13, 13),
-                     device="cpu", generator=torch.Generator().manual_seed(0))
+                     device="cpu", generator=Threefry().manual_seed(0))
     bounds = {"encoder.conv0.weight": np.sqrt(6 / (9 + 9 * 16)),
               "encoder.conv1.weight": np.sqrt(6 / (16 * 9 + 9 * 32)),
               "encoder.fc.weight": np.sqrt(6 / (512 + 256)),

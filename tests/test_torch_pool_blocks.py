@@ -37,6 +37,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig, TrainConfig
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import init_pool_ptr, make_train_step
 from active_tracking_rl_torch.rl.optim import make_optimizer_for
 from active_tracking_rl_torch.rl.rollout import TrainCarry
@@ -91,7 +92,7 @@ def setup():
     tcarry = TrainCarry(torch_state(state),
                         torch.from_numpy(np.array(obs))[:, :, None],
                         torch.zeros(B, 2, 128), torch.zeros(B, 2, 128),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
     tc1, tm1, tptr1 = ts(tcarry, 0, (tpool_state, tpool_obs,
                                      init_pool_ptr(BLOCKS, device="cpu")),
                          step_noise(carry.key, T, B, tc.num_actions))
@@ -146,8 +147,8 @@ def test_in_step_pool_takes_blocked_pointer():
     for external in (False, True):
         model = build_model(tn, ecfg.num_actions, ecfg.obs_shape,
                             device="cpu",
-                            generator=torch.Generator().manual_seed(0))
-        gen = torch.Generator().manual_seed(5)
+                            generator=Threefry().manual_seed(0))
+        gen = Threefry().manual_seed(5)
         state, obs = env.reset_batch(B, gen)
         carry = TrainCarry(state, obs[:, :, None], torch.zeros(B, 2, 128),
                            torch.zeros(B, 2, 128), gen)

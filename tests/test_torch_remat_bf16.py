@@ -30,6 +30,7 @@ from active_tracking_rl_tpu.models.dueling import build_model as jbuild
 from active_tracking_rl_torch.config import NetConfig, TrainConfig, parse_env_id
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import (draw_step_noise,
                                                  init_pool_ptr, make_train_step)
 from active_tracking_rl_torch.rl.optim import make_optimizer_for
@@ -46,7 +47,7 @@ def _train_step(network, env_id, remat, bf16=False, mode=-1):
     tcfg = TrainConfig(env_id=env_id, num_envs=B, reset_pool=P, num_steps=T,
                        train_mode=mode, remat=remat, bf16=bf16)
     ncfg = dataclasses.replace(NetConfig.from_name(network), bf16=bf16)
-    gen = torch.Generator().manual_seed(0)
+    gen = Threefry().manual_seed(0)
     model = build_model(ncfg, ecfg.num_actions, ecfg.obs_shape, device="cpu",
                         generator=gen)
     carry = init_carry(env, ncfg, B, gen)
@@ -86,7 +87,7 @@ def test_bf16_forward_close_to_f32_and_params_f32():
                                **FAST)
     n32 = NetConfig.from_name("tat-maze-lstm")
     n16 = dataclasses.replace(n32, bf16=True)
-    gen = torch.Generator().manual_seed(0)
+    gen = Threefry().manual_seed(0)
     m32 = build_model(n32, ecfg.num_actions, ecfg.obs_shape, device="cpu",
                       generator=gen)
     m16 = build_model(n16, ecfg.num_actions, ecfg.obs_shape, device="cpu")

@@ -30,6 +30,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.models.dueling import (TATPlayer, build_model,
                                                      params_from_flax)
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import bootstrap_values
 from active_tracking_rl_torch.rl.rollout import TrainCarry
 
@@ -91,7 +92,7 @@ def test_converter_covers_every_tat_parameter():
 def test_reset_parameters_follows_the_reference_init():
     """Every Linear of the TAT player U(-b, b), b = sqrt(6/(in+out)), bias 0."""
     tm = build_model(NetConfig.from_name("tat-maze-lstm"), A, (13, 13),
-                     device="cpu", generator=torch.Generator().manual_seed(0))
+                     device="cpu", generator=Threefry().manual_seed(0))
     for lin in (tm.player1.fc_action_tracker, tm.player1.reward_aux):
         out_f, in_f = lin.weight.shape
         b = np.sqrt(6.0 / (in_f + out_f))
@@ -153,7 +154,7 @@ def test_greedy_step_ignores_the_noise():
 def test_non_tat_model_returns_no_r_pred():
     tm = build_model(NetConfig.from_name("maze-lstm", aux="none"), A,
                      (13, 13), device="cpu",
-                     generator=torch.Generator().manual_seed(0))
+                     generator=Threefry().manual_seed(0))
     out = tm.step_both(torch.zeros(B, 2, 1, 13, 13, 1),
                        torch.zeros(B, 2, 128), torch.zeros(B, 2, 128), None,
                        test=True)

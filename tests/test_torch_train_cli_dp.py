@@ -1,9 +1,11 @@
 """The port's trainer CLI, ``run/train.py:main``, as 2 gloo ranks on the CPU
 (the settings of the JAX package's tests/test_train_cli_multiproc.py:
 Track2D-EmptyPartialRam-v0, maze-lstm, train mode 0, 8 envs, a pool of 4,
-4 steps), with the pool refreshed every 3 iterations outside the train
-step, so the ranks' pool pointers persist across iterations and the
-resume at iteration 2 falls inside a refresh window: rank 1 logs to the ``-r1`` run dir and writes no parameter file,
+4 steps; seed 4, whose 16 env steps end an episode on one row, so the
+resume crosses an autoreset), with the pool refreshed every 3 iterations
+outside the train step, so the ranks' pool pointers persist across
+iterations and the resume at iteration 2 falls inside a refresh window:
+rank 1 logs to the ``-r1`` run dir and writes no parameter file,
 ``train_state.pt`` or ``ckpt_meta.json``; both ranks log the same eval and
 ``[best]`` lines (their seconds aside); and a 2-rank resume from iteration
 2 to 4 ends with the parameters, carry and eval of the uninterrupted run,
@@ -26,7 +28,7 @@ ENV = "Track2D-EmptyPartialRam-v0"
 FLAGS = ["--device", "cpu", "--env", ENV, "--env-base", ENV,
          "--network", "maze-lstm", "--aux", "none", "--train-mode", "0",
          "--num-envs", "8", "--reset-pool", "4", "--num-steps", "4",
-         "--test-eps", "8", "--checkpoint-every", "2", "--seed", "1",
+         "--test-eps", "8", "--checkpoint-every", "2", "--seed", "4",
          "--pool-refresh", "3"]
 
 

@@ -29,6 +29,7 @@ from active_tracking_rl_tpu.rl.rollout import TrainCarry as JCarry
 from active_tracking_rl_torch.config import NetConfig, TrainConfig
 from active_tracking_rl_torch.envs.env import TrackEnv
 from active_tracking_rl_torch.models.dueling import build_model, params_from_flax
+from active_tracking_rl_torch.ops.noise import Threefry
 from active_tracking_rl_torch.rl.learner import init_pool_ptr, make_train_step
 from active_tracking_rl_torch.rl.optim import make_optimizer_for
 from active_tracking_rl_torch.rl.rollout import TrainCarry
@@ -109,7 +110,7 @@ def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
                         torch.from_numpy(np.array(stack_obs)),
                         torch.from_numpy(np.array(hx)),
                         torch.from_numpy(np.array(hx)),
-                        torch.Generator().manual_seed(0))
+                        Threefry().manual_seed(0))
     tpool = (torch_state(pool_state), torch.from_numpy(np.array(pool_obs)))
 
     opt_state, ptr = opt.init(params), jnp.int32(0)
