@@ -119,9 +119,11 @@ def _worker(args) -> None:
     from active_tracking_rl_torch.parallel.mesh import (MeshSpec, host_init,
                                                         make_mesh, shutdown)
     from active_tracking_rl_torch.utils.platform import (default_backend,
+                                                         pin_deterministic,
                                                          pin_float32,
                                                          resolve_device)
     pin_float32()
+    pin_deterministic()
     if torch.device(args.device).type == "cpu":
         torch.set_num_threads(1)
     device = resolve_device(args.device, args.process_id)

@@ -50,7 +50,8 @@ from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
                                                  make_pool_fn, make_train_step)
 from active_tracking_rl_torch.rl.rollout import TrainCarry
 from active_tracking_rl_torch.run.train import iteration_generator
-from active_tracking_rl_torch.utils.platform import (pin_float32,
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32,
                                                      resolve_device, sync)
 
 #: the seed of the external pool's generators, bench.py's PRNGKey(7)
@@ -74,6 +75,8 @@ class Bench:
     #: step(carry, mode, pool=None) of learner.make_train_step
     train_step: Callable
     carry: TrainCarry
+    #: the optimizer that train_step steps
+    opt: torch.optim.Optimizer
     #: the external pool and its pointer (pool refresh K > 1)
     pool: Optional[tuple] = None
     pool_ptr: Optional[torch.Tensor] = None
@@ -134,7 +137,7 @@ def build_bench(num_envs: int = 4096, num_steps: int = 20,
     step = make_train_step(model, env, ncfg, tcfg, state.opt)
     return Bench(env, model, tcfg, ncfg, dev, pool_refresh,
                  train_mode if train_mode >= 0 else -1, gen, step,
-                 state.carry)
+                 state.carry, state.opt)
 
 
 def time_bench(bench: Bench, iters: int, warmup: int = 2) -> BenchResult:
@@ -248,6 +251,7 @@ def main(argv=None):
     the dict)."""
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     if args.sweep:
         out = sweep(args.device)
         print(json.dumps(out, indent=1))

@@ -32,7 +32,8 @@ from active_tracking_rl_torch.envs import maps
 from active_tracking_rl_torch.envs.distance import distance_fields_backend
 from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.run.profile_iter import timeit
-from active_tracking_rl_torch.utils.platform import (pin_float32,
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32,
                                                      resolve_device)
 
 ROWS = 512          # the reset pool at 4096 envs
@@ -90,6 +91,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> Dict:
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     out = bench_flood(args.rows, args.device)
     print(json.dumps(out, indent=1), flush=True)
     return out

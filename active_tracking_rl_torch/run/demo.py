@@ -32,7 +32,8 @@ from active_tracking_rl_torch.envs.render import save_episode_gif
 from active_tracking_rl_torch.models.dueling import DuelingModel, build_model
 from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
-from active_tracking_rl_torch.utils.platform import (pin_float32,
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32,
                                                      resolve_device)
 
 
@@ -86,6 +87,7 @@ def main(argv=None) -> List[Tuple[List[np.ndarray], int, float]]:
     """Runs the episodes; returns each one's (frames, length, return)."""
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     if args.gif:
         try:
             import PIL  # noqa: F401

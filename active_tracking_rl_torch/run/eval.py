@@ -31,7 +31,8 @@ from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.rl.evaluate import evaluate
 from active_tracking_rl_torch.utils.logging import close_logger, setup_logger
-from active_tracking_rl_torch.utils.platform import pin_float32
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -71,6 +72,7 @@ def load_model(args, ecfg, device):
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     device = torch.device(args.device)
     log = setup_logger(f"{args.env}_mon_log",
                        os.path.join(args.log_dir, f"{args.env}_mon_log"))

@@ -27,7 +27,8 @@ from active_tracking_rl_torch.models.dueling import build_model
 from active_tracking_rl_torch.ops import noise
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from active_tracking_rl_torch.rl.evaluate import make_evaluator
-from active_tracking_rl_torch.utils.platform import pin_float32
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32)
 from active_tracking_rl_torch.utils.stats import wilson_ci
 
 PAPER_ENVS = [
@@ -65,6 +66,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     device = torch.device(args.device)
     trackers = dict(t.split("=", 1) for t in args.tracker)
     targets = dict(t.split("=", 1) for t in args.target)

@@ -45,7 +45,8 @@ import torch
 from active_tracking_rl_torch.config import parse_env_id
 from active_tracking_rl_torch.envs.env import ResetDraws, TrackEnv
 from active_tracking_rl_torch.ops import noise
-from active_tracking_rl_torch.utils.platform import (pin_float32,
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32,
                                                      resolve_device)
 
 #: the repository root (the NumPy oracles, the gym shims)
@@ -245,6 +246,7 @@ def main(argv=None):
                          "envs/gym-track2d directory of its repository)")
     args = p.parse_args(argv)
     pin_float32()
+    pin_deterministic()
     if args.cmd == "record":
         record(args.env, args.seed, args.out, args.episodes, args.device)
     elif args.cmd == "verify":

@@ -53,7 +53,8 @@ from active_tracking_rl_torch.rl.learner import (init_learner, init_pool_ptr,
                                                  make_pool_fn, make_train_step)
 from active_tracking_rl_torch.rl.rollout import (draw_action_noise,
                                                  obs_to_model, run_rollout)
-from active_tracking_rl_torch.utils.platform import (pin_float32,
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32,
                                                      resolve_device, sync)
 
 NUM_ENVS = 4096
@@ -238,6 +239,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> Dict:
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     out = profile_iter(args.num_envs, args.pool or args.num_envs // 8,
                        args.device)
     print(json.dumps(out, indent=1), flush=True)

@@ -175,10 +175,12 @@ def capture(num_envs: int, iters: int, env_id: str, network: str,
                                                      init_pool_ptr,
                                                      make_pool_fn,
                                                      make_train_step)
-    from active_tracking_rl_torch.utils.platform import (pin_float32,
+    from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                         pin_float32,
                                                          resolve_device, sync)
 
     pin_float32()
+    pin_deterministic()
     dev = resolve_device(device)
     tcfg = TrainConfig(env_id=env_id, num_envs=num_envs,
                        reset_pool=max(num_envs // 8, 64), train_mode=0,

@@ -84,6 +84,7 @@ from active_tracking_rl_torch.rl.rollout import TrainCarry
 from active_tracking_rl_torch.utils.logging import (MetricWriter, close_logger,
                                                     setup_logger)
 from active_tracking_rl_torch.utils.platform import (default_backend,
+                                                     pin_deterministic,
                                                      pin_float32,
                                                      resolve_device)
 
@@ -278,6 +279,7 @@ def setup(argv=None) -> Session:
     resumed run's state."""
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     if args.local_devices not in (None, 1):
         raise ValueError(f"--local-devices {args.local_devices}: torch has "
                          f"no virtual devices; run one process per device "

@@ -47,7 +47,8 @@ from active_tracking_rl_torch.rl.host_loop import HostTrainer
 from active_tracking_rl_torch.run.train import metrics_to_host
 from active_tracking_rl_torch.utils.logging import (MetricWriter, close_logger,
                                                     setup_logger)
-from active_tracking_rl_torch.utils.platform import pin_float32
+from active_tracking_rl_torch.utils.platform import (pin_deterministic,
+                                                     pin_float32)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -94,6 +95,7 @@ class HostRun:
 def main(argv=None) -> HostRun:
     args = build_argparser().parse_args(argv)
     pin_float32()
+    pin_deterministic()
     tcfg = TrainConfig(
         env_id=args.env, lr=args.lr, gamma=args.gamma, tau=args.tau,
         entropy=args.entropy, entropy_target=args.entropy_target,

@@ -15,6 +15,12 @@ The port's counterpart of ``active_tracking_rl_tpu/utils/platform.py``.
   point of the port calls it before it builds a model or an env, so what
   users run is what the CPU parity tests hold to the JAX package's float32.
   It is the only precision: the JAX package has no TF32 switch either.
+* :func:`pin_deterministic` makes a run a function of its seed on the card
+  too: deterministic algorithms only (cuBLAS with a fixed workspace, cuDNN
+  without benchmarking, no atomics in the reductions of torch's own ops),
+  so one seed replays one run bit for bit, as the JAX program does on the
+  TPU. The same entry points call it beside :func:`pin_float32`, before
+  any CUDA work, and no flag turns it off.
 
 The JAX module's ``respect_jax_platforms`` and ``early_platform_setup`` have
 no torch meaning and no counterpart here: they re-pin a JAX platform that a
@@ -26,9 +32,11 @@ starts one process per device.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.utils.deterministic
 
 
 def parse_flag(argv: Sequence[str], name: str, cast):
@@ -92,6 +100,42 @@ def pin_float32() -> Dict[str, object]:
             "cudnn.rnn": backends.cudnn.rnn.fp32_precision,
             "matmul.allow_tf32": backends.cuda.matmul.allow_tf32,
             "cudnn.allow_tf32": backends.cudnn.allow_tf32}
+
+
+#: cuBLAS's fixed workspace for deterministic products (its documented
+#: setting: eight buffers of 4 MiB)
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def pin_deterministic() -> Dict[str, object]:
+    """Deterministic execution on the card; returns the settings as read
+    back.
+
+    Sets ``CUBLAS_WORKSPACE_CONFIG`` to :data:`CUBLAS_WORKSPACE` when it is
+    unset (cuBLAS reads it when a process makes its first handle, and
+    spawned ranks inherit it; a value already set is left), then
+    ``torch.use_deterministic_algorithms(True)``, so that an op with no
+    deterministic kernel raises instead of running, cuDNN's deterministic
+    algorithms without benchmarking, and leaves memory from ``torch.empty``
+    unfilled: the port writes every tensor it reads (a run with the fill
+    equals one without), and filling costs a kernel launch per allocation,
+    about a fifth of the main path's env-steps/s on an H100 (PERF.md §6).
+    Idempotent; it touches no device, so it runs on the CPU.
+    """
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return {"algorithms": torch.are_deterministic_algorithms_enabled(),
+            "warn_only":
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+            "fill_uninitialized_memory":
+                torch.utils.deterministic.fill_uninitialized_memory,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "CUBLAS_WORKSPACE_CONFIG":
+                os.environ["CUBLAS_WORKSPACE_CONFIG"]}
 
 
 def sync(device) -> None:

@@ -15,9 +15,11 @@ parameters, from the sharpened tracker and from the flax-format tracker
 file TRACKER if one is given.
 
 Phases (each prints one line with its seconds):
-  1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`
-     and the float32 settings that utils/platform.py:pin_float32 leaves
-     (no TF32), the precision of every entry point of the port;
+  1. device: needs CUDA, prints `nvidia-smi --query-gpu=name,power.limit`,
+     the float32 settings that utils/platform.py:pin_float32 leaves (no
+     TF32) and the deterministic mode that pin_deterministic leaves
+     (deterministic algorithms, cuDNN without benchmarking,
+     CUBLAS_WORKSPACE_CONFIG), as every entry point of the port pins them;
   2. build: compiles csrc/flood_bfs.cu, the one kernel source (its launchers
      flood_sweep, flood_sweep16 and flood_relax), with nvcc (plain C
      interface, ctypes); prints ptxas's registers, shared memory and spills
@@ -81,7 +83,9 @@ Phases (each prints one line with its seconds):
      in the warm-up step) and flood_relax and flood_sweep16 must not;
      prints their (warm) env-steps/s, then the time of one reset pool, of
      its parts (map, spawns, tape with its floods; run/profile_iter.py's
-     pool_parts) and of one train step on a given pool;
+     pool_parts) and of one train step on a given pool; then repro: the
+     main path's train step twice from one state, its parameters,
+     optimizer state, carry and metrics equal bit for bit;
   6. maze-main: the same on Track2D-MazePartialNav-v0 with flood_backend
      "pallas": flood_relax must be launched, flood_sweep and flood_sweep16
      must not; then bench-flood: run/bench_flood.py at 64 rows x 16 goals
@@ -115,7 +119,10 @@ Phases (each prints one line with its seconds):
  11. cli-resume: --resume of that run to iteration 8; before it steps, the
      parameters, optimizer state, carry and generator state it loaded equal
      the saved ones and the first run's last, bit for bit; it starts at
-     iteration 7 with the saved curriculum and watermark;
+     iteration 7 with the saved curriculum and watermark; at iteration 8
+     its parameters, optimizer state and carry equal, bit for bit, those
+     of one uninterrupted 8-iteration run of the same flags (evaluated at
+     8 only), and so do the two evals at 8;
  12. cli-eval: run/eval.py on cli-train's tracker and target files, 100
      episodes on Nav: S_rate and EL_mean equal, R_mean to 1e-5, those of
      rl/evaluate.py on the same parameters and seed; then
@@ -126,7 +133,7 @@ Phases (each prints one line with its seconds):
      gradients with and without remat from one state, to 1e-5 relative;
  14. host-train: the host-env trainer CLI, `run/train_host.py:main`, with
      --device cuda on Track2D-BlockPartialNav-v0 through the gym bridge,
-     maze-lstm at full width, 16 envs x 20 steps, 2 iterations, one
+     maze-lstm at full width, 16 envs x 20 steps, 1 iteration, one
      checkpoint: the loss finite, the all-, tracker- and target- parameter
      files written, flood_sweep launched exactly once per env reset (the
      pool counts its resets) and no other kernel; prints env-steps/s, the
@@ -194,6 +201,7 @@ non-zero without the last line.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import pathlib
@@ -266,8 +274,8 @@ LEARN_ENV = "Track2D-BlockPartialRam-v0"
 LEARN_ITERS, LEARN_EPISODES, LEARN_STEPS = 125, 64, 100
 
 #: the host-env trainer CLI on the card: Nav through the gym bridge, cut to
-#: 2 iterations (each ~18 one-row resets of ~0.3 s)
-HOST_TRAIN_ITERS = 2
+#: 1 iteration (~20 one-row resets of ~0.35 s an iteration)
+HOST_TRAIN_ITERS = 1
 HOST_TRAIN_FLAGS = ["--env", "Track2D-BlockPartialNav-v0", "--network",
                     "maze-lstm", "--num-envs", "16", "--num-steps", "20",
                     "--total-iters", str(HOST_TRAIN_ITERS),
@@ -1211,7 +1219,43 @@ def phase_main(torch, flood, bench, profile_iter, learner, name, env_id,
     torch.cuda.synchronize()
     say(f"{name}-step", t3, "one train step on that pool (rollout, loss, "
         "backward, SharedAdam)")
-    return launches
+    return launches, b
+
+
+def _train_state(train_cli, model, opt, carry, metrics=None):
+    """A copy of the parameters, the optimizer state, the carry (with its
+    generator's state) and, if given, a step's metrics."""
+    state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+             "carry": train_cli.carry_state(carry)}
+    if metrics is not None:
+        state["metrics"] = dict(zip(metrics._fields, metrics))
+    return copy.deepcopy(state)
+
+
+def phase_repro(torch, train_cli, b):
+    """The main path's train step twice from one state (a fresh pool drawn
+    inside each): parameters, optimizer state, carry and metrics equal bit
+    for bit."""
+    t0 = time.perf_counter()
+    start = _train_state(train_cli, b.model, b.opt, b.carry)
+    ends = []
+    for _ in range(2):
+        b.model.load_state_dict(start["model"])
+        b.opt.load_state_dict(copy.deepcopy(start["optimizer"]))
+        b.carry = train_cli.restore_carry(copy.deepcopy(start["carry"]),
+                                          b.carry.generator)
+        m = b.iterate(0)
+        ends.append(_train_state(train_cli, b.model, b.opt, b.carry, m))
+    torch.cuda.synchronize()
+    _assert_tensors_equal(torch, ends[1], ends[0], "repro")
+    if all(torch.equal(ends[0]["model"][k], v)
+           for k, v in start["model"].items()):
+        raise AssertionError("repro: the step left every parameter as it "
+                             "was")
+    say("repro", t0, f"the main path's train step twice from one state at "
+        f"{b.tcfg.num_envs} envs: parameters, optimizer state, carry and "
+        f"metrics equal bit for bit (loss "
+        f"{float(ends[0]['metrics']['loss']):.6f})")
 
 
 def phase_bench_flood(torch, flood, bench_flood):
@@ -1489,9 +1533,27 @@ def phase_cli_resume(torch, flood, train_cli, checkpoint, first, tmp):
         raise AssertionError(f"cli-resume: {meta}, launches {launches}")
     for line in _log_lines(s.run_dir, "resumed", "eval "):
         say("cli-resume", t0, line)
+    # the resumed run ends where one uninterrupted run of 8 iterations does
+    t1 = time.perf_counter()
+    straight = train_cli.main(CLI_TRAIN_FLAGS + [
+        "--log-dir", str(tmp), "--run-name", "smoke-straight",
+        "--total-iters", "8", "--checkpoint-every", "8"])
+    torch.cuda.synchronize()
+    _assert_tensors_equal(
+        torch, _train_state(train_cli, s.model, s.opt, s.carry),
+        _train_state(train_cli, straight.model, straight.opt, straight.carry),
+        "resumed vs uninterrupted at iteration 8")
+    evals = [{k: v for k, v in r.items() if k.startswith("test/")}
+             for run in (s, straight) for r in
+             _read_jsonl(pathlib.Path(run.run_dir) / "metrics.jsonl")
+             if r["step"] == 8 and "test/success_rate" in r]
+    if len(evals) != 2 or evals[0] != evals[1]:
+        raise AssertionError(f"cli-resume: the evals at 8 differ: {evals}")
     say("cli-resume", t0, f"params, optimizer state, carry and generator "
         f"state loaded bit for bit; iterations 7-8 at mode {s.cur.mode}, "
-        f"watermark {first.ckpt.max_score:.3f}; launches {launches}")
+        f"watermark {first.ckpt.max_score:.3f}; launches {launches}; at "
+        f"iteration 8 equal bit for bit to an uninterrupted run of 8 "
+        f"({time.perf_counter() - t1:.3f} s), eval {evals[0]}")
     return launches
 
 
@@ -1956,11 +2018,12 @@ def phase_learn_continuous(flood, tconfig, dueling, host_loop):
 
 def _learn_tat_run(job):
     """One run of the TAT bar, job = (device, seed, train mode), in a
-    process of its own: float32 without TF32, as in main(), one thread on
-    the CPU. Returns its returns, pred_losses and flood launches."""
+    process of its own: float32 without TF32 and deterministic algorithms,
+    as in main(), one thread on the CPU. Returns its returns, pred_losses and flood launches."""
     device, seed, mode = job
     import torch
     _no_tf32()
+    _deterministic()
     if device == "cpu":
         torch.set_num_threads(1)
     from active_tracking_rl_torch import config as tconfig
@@ -2125,6 +2188,14 @@ def _no_tf32():
     Returns the state as read back."""
     from active_tracking_rl_torch.utils.platform import pin_float32
     return pin_float32()
+
+
+def _deterministic():
+    """Deterministic algorithms only, as every entry point of the port pins
+    them (utils/platform.py:pin_deterministic). Returns the settings as
+    read back."""
+    from active_tracking_rl_torch.utils.platform import pin_deterministic
+    return pin_deterministic()
 
 
 def _mp_check_rank(port):
@@ -2440,6 +2511,7 @@ def update_sweep(tracker, envs=RECIPE_ENVS, pool=RECIPE_POOL) -> int:
     """The update check alone: fresh, low-entropy, and from `tracker`."""
     import torch
     _no_tf32()
+    _deterministic()
     cases = [("fresh", None, False), ("low-entropy", None, True)]
     if tracker:
         cases.append((f"tracker {tracker}", tracker, False))
@@ -2478,9 +2550,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     precision = _no_tf32()
+    determinism = _deterministic()
     say("device", t_start, f"{torch.cuda.get_device_name(0)} | {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | float32 "
-        f"{precision}")
+        f"{precision} | deterministic {determinism}")
 
     from active_tracking_rl_torch import config as tconfig
     from active_tracking_rl_torch.envs import bridge
@@ -2512,10 +2585,12 @@ def main(argv=None) -> int:
         phase_reference_host(torch, tconfig, env_mod, bridge, dueling, optim,
                              host_loop, draw_gen(1))
         paths = {}
-        paths["main"] = phase_main(
+        paths["main"], main_bench = phase_main(
             torch, flood, bench, profile_iter, learner, "main", BENCH_ENV,
             None, "flood_sweep", ("flood_relax", "flood_sweep16"))
-        paths["maze-main"] = phase_main(
+        phase_repro(torch, train_cli, main_bench)
+        del main_bench
+        paths["maze-main"], _ = phase_main(
             torch, flood, bench, profile_iter, learner, "maze-main",
             MAZE_ENV, "pallas", "flood_relax",
             ("flood_sweep", "flood_sweep16"))

@@ -8,8 +8,13 @@ the two take one apart (chip_smoke.py:check_update); the draws that
 ops/noise.py's generator (threefry2x32) makes on the card, equal to the
 CPU's bit for bit (each device's Gumbel noise within
 chip_smoke.GUMBEL_ULP ulp of float64's transform of the same bits), at
-production's shapes (chip_smoke.py:check_draws); and those draws held to
-the CPU's laws (which tests/test_torch_draw_laws.py holds to JAX's).
+production's shapes (chip_smoke.py:check_draws); those draws held to
+the CPU's laws (which tests/test_torch_draw_laws.py holds to JAX's); and
+the card's runs reproducible bit for bit under the deterministic mode
+that every entry point pins (utils/platform.py:pin_deterministic): two
+trainer runs of one seed, a --resume split and the straight run, and two
+2-rank runs, each equal in the parameters, the optimizer state, the carry
+and every metrics.jsonl line but its wall-clock fields.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (the suite's conftest.py needs JAX):
@@ -19,6 +24,11 @@ with a card and PyTorch alone (the suite's conftest.py needs JAX):
 Without a card each test skips itself. chip_smoke.py makes the same checks
 at the main paths' shapes.
 """
+
+import functools
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +41,7 @@ from active_tracking_rl_torch.models.heads import sample_discrete
 from active_tracking_rl_torch.ops import flood, noise
 from active_tracking_rl_torch.utils.platform import pin_float32
 # tests/ is on the path under pytest
+from same_run import compare, metric_lines
 from torch_mazes import perfect_maze
 from torch_stats import OFFSET_CATS, chi2_2samp_ok, counts, ks_2samp_ok
 
@@ -270,3 +281,94 @@ def test_card_draws_equal_the_cpus():
     tally = chip_smoke.check_draws(torch)
     print(tally)
     assert tally["values"] > 0
+
+
+#: the main path's config at a small width (every op of its train step:
+#: the Nav pool with its floods, the rollout with remat, the update)
+REPRO_ENV = "Track2D-BlockPartialNav-v0"
+REPRO_FLAGS = ["--device", "cuda", "--env", REPRO_ENV, "--env-base",
+               REPRO_ENV, "--network", "maze-lstm", "--train-mode", "0",
+               "--num-envs", "256", "--reset-pool", "64", "--test-eps", "8",
+               "--seed", "1"]
+REPRO_ITERS = 60
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _trained(log_dir, name, iters, *extra):
+    """run/train.py's main on the card, checkpointing at its last
+    iteration; returns its run dir."""
+    from active_tracking_rl_torch.run import train as train_mod
+    from active_tracking_rl_torch.utils import logging as logging_mod
+    writer = train_mod.MetricWriter
+    train_mod.MetricWriter = functools.partial(logging_mod.MetricWriter,
+                                               use_tensorboard=False)
+    try:
+        s = train_mod.main(REPRO_FLAGS + [
+            "--log-dir", str(log_dir), "--run-name", name, "--total-iters",
+            str(iters), "--checkpoint-every", str(iters), *extra])
+    finally:
+        train_mod.MetricWriter = writer
+    return s.run_dir
+
+
+def _assert_same(want_dir, got):
+    res = compare(want_dir, got)
+    assert res["same"], res
+    assert res["lines"] >= 2
+
+
+@pytest.fixture(scope="module")
+def straight_run(tmp_path_factory):
+    _card()
+    return _trained(tmp_path_factory.mktemp("straight"), "straight",
+                    REPRO_ITERS)
+
+
+@pytest.mark.cuda
+def test_two_runs_of_one_seed_are_equal_on_the_card(straight_run,
+                                                    tmp_path):
+    """Two runs of the trainer with one seed: parameters, optimizer state,
+    carry and every logged metric equal bit for bit
+    (tests/same_run.py)."""
+    _assert_same(straight_run, _trained(tmp_path, "again", REPRO_ITERS))
+
+
+@pytest.mark.cuda
+def test_resume_split_equals_the_straight_run_on_the_card(straight_run,
+                                                          tmp_path):
+    """Half the iterations, then --resume for the rest: the end state and
+    the logged metrics equal the straight run's bit for bit (the split run
+    also evaluates where it stops)."""
+    half = _trained(tmp_path, "half", REPRO_ITERS // 2)
+    resumed = _trained(tmp_path, "resumed", REPRO_ITERS, "--resume", half)
+    _assert_same(straight_run, f"{half}+{resumed}")
+
+
+def _two_ranks(log_dir, name, iters):
+    """run/train.py as 2 ranks over gloo on cuda:0, one process each;
+    returns rank 0's run dir (rank 1's is it suffixed -r1)."""
+    from active_tracking_rl_torch.parallel.mesh import free_port
+    argv = [sys.executable, "-m", "active_tracking_rl_torch.run.train",
+            *REPRO_FLAGS, "--log-dir", str(log_dir), "--run-name", name,
+            "--total-iters", str(iters), "--checkpoint-every", str(iters),
+            "--coordinator", f"127.0.0.1:{free_port()}",
+            "--num-processes", "2", "--dist-backend", "gloo"]
+    procs = [subprocess.Popen(argv + ["--process-id", str(r)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    for p in procs:
+        out = p.communicate(timeout=600)[0]
+        assert p.returncode == 0, out[-3000:]
+    return str(Path(log_dir) / REPRO_ENV / name)
+
+
+@pytest.mark.cuda
+def test_two_rank_runs_are_equal_on_the_card(tmp_path):
+    """Two runs of the 2-rank trainer (gloo, both ranks on one card) with
+    one seed: the saved parameters, optimizer state and gathered carry,
+    and both ranks' logged metrics, equal bit for bit."""
+    _card()
+    a, b = (_two_ranks(tmp_path, n, 10) for n in ("a", "b"))
+    _assert_same(a, b)
+    assert metric_lines(f"{a}-r1") == metric_lines(f"{b}-r1")
