@@ -5,7 +5,8 @@ keep: the success rate at every eval, the takeoff (the first eval with S
 >= 0.5), where the tracker's ``train/entropies0`` first falls below 0.01
 and where it next climbs above 0.1, the longest stretch below 0.01 before
 the takeoff (an early collapse when it exceeds 300 iterations) and
-``entropies0`` at chosen iterations. Imports only the standard library:
+``entropies0`` at chosen iterations, and with ``--bar S`` the first eval
+with a success rate of at least S. Imports only the standard library:
 
     python3 tests/learning_curves.py runs/r3-tracker-nav/*/*/metrics.jsonl \\
         --at 50 100 150 200 250 300 400
@@ -21,6 +22,8 @@ import json
 from typing import Dict, List, Optional
 
 LOW, HIGH, TAKEOFF, EARLY = 0.01, 0.1, 0.5, 300
+#: S is a float32 share of the episodes (95 of 100 logs 0.949999988)
+S_ROUNDING = 1e-6
 
 
 def load(spec: str) -> List[dict]:
@@ -60,12 +63,20 @@ def summary(rows: List[dict]) -> dict:
                 last=ent[-1][0] if ent else None)
 
 
-def line(name: str, s: dict, at: Optional[List[int]] = None) -> str:
+def first_at(evals, bar: float) -> Optional[int]:
+    """The first eval's iteration with S >= bar (as a share of episodes)."""
+    return next((it for it, x in evals if x >= bar - S_ROUNDING), None)
+
+
+def line(name: str, s: dict, at: Optional[List[int]] = None,
+         bar: Optional[float] = None) -> str:
     ev = " ".join(f"{x:.2f}" for _, x in s["evals"])
     out = (f"{name}: to {s['last']}; S [{ev}]; takeoff {s['takeoff']}; "
            f"entropies0 < {LOW} from {s['first_below']}, > {HIGH} again at "
            f"{s['back_above']}; longest below {LOW} before takeoff "
            f"{s['longest_below']} (early collapse: {s['early_collapse']})")
+    if bar is not None:
+        out += f"; first S >= {bar} at {first_at(s['evals'], bar)}"
     if at:
         out += "; entropies0 " + " ".join(
             f"{it}:{s['entropy'][it]:.4f}" for it in at if it in s["entropy"])
@@ -77,9 +88,16 @@ def main(argv=None) -> None:
     ap.add_argument("runs", nargs="+", help="metrics.jsonl (a+b: resumed)")
     ap.add_argument("--at", type=int, nargs="*", default=None,
                     help="also print entropies0 at these iterations")
+    ap.add_argument("--bar", type=float, default=None,
+                    help="also print the first eval with S >= this")
+    ap.add_argument("--steps", action="store_true",
+                    help="print each eval's iteration beside its S")
     args = ap.parse_args(argv)
     for spec in args.runs:
-        print(line(spec, summary(load(spec)), args.at), flush=True)
+        s = summary(load(spec))
+        print(line(spec, s, args.at, args.bar), flush=True)
+        if args.steps:
+            print("  S " + " ".join(f"{it}:{x:.2f}" for it, x in s["evals"]))
 
 
 if __name__ == "__main__":

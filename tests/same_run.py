@@ -14,6 +14,15 @@ so is every metrics.jsonl line but its wall-clock fields (``wall``,
 not, the first entry that differs; exits 1 unless every GOT is WANT.
 Run it from the root of the repository (it imports the port's checkpoint
 reader).
+
+    python3 tests/same_run.py --prefix WANT GOT [GOT ...]
+
+compares logs only: GOT (or a chain ``A+B+C`` of a run and its
+``--resume`` continuations, each ending at an evaluation) is a prefix of
+WANT when its metrics.jsonl lines equal WANT's lines up to GOT's last
+step, but for the wall-clock fields. A run of one seed to an earlier
+``--total-iters`` is such a prefix: evaluations do not change the
+training trajectory.
 """
 
 from __future__ import annotations
@@ -101,13 +110,32 @@ def compare(want_dir, got_spec):
     return out
 
 
+def compare_prefix(want_dir, got_spec):
+    lines = [r for d in got_spec.split("+") for r in metric_lines(d)]
+    last = max(r["step"] for r in lines)
+    want = [r for r in metric_lines(want_dir) if r["step"] <= last]
+    out = {"got": got_spec, "step": last, "lines": len(lines),
+           "difference": None}
+    if lines != want:
+        k = next((i for i, (a, b) in enumerate(zip(lines, want)) if a != b),
+                 min(len(lines), len(want)))
+        out["difference"] = {"entry": f"metrics line {k}",
+                             "got": lines[k] if k < len(lines) else None,
+                             "want": want[k] if k < len(want) else None}
+    out["same"] = out["difference"] is None
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("want")
     ap.add_argument("got", nargs="+")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--prefix", action="store_true",
+                    help="compare the logs of GOT with WANT's first lines")
     args = ap.parse_args(argv)
-    res = {"want": args.want, "runs": [compare(args.want, g)
+    check = compare_prefix if args.prefix else compare
+    res = {"want": args.want, "runs": [check(args.want, g)
                                        for g in args.got]}
     res["all_same"] = all(r["same"] for r in res["runs"])
     text = json.dumps(res)

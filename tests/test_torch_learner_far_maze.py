@@ -96,7 +96,7 @@ def pair(request):
     ecfg = parse_env_id(env_id)
     if ecfg.target_mode == "Nav":
         ecfg = dataclasses.replace(ecfg, **FAST)
-    jenv, params, opt, step, env, model, ts = build_pair(
+    jenv, params, opt, step, env, model, ts, *_ = build_pair(
         ecfg, env_id, "tat-maze-lstm", mode, stack, B, T, grads=True)
     reset = jax.jit(lambda k: jenv.reset_batch(k, B))
     keys = jax.random.PRNGKey(1), jax.random.PRNGKey(2)

@@ -65,7 +65,7 @@ def lockstep(num_envs: int, pool_rows: int, iters: int, stack: int,
     both packages' ``TrainConfig.remat``."""
     b, p = num_envs, pool_rows
     ecfg = dataclasses.replace(parse_env_id(ENV_ID), **sizes)
-    jenv, params, opt, step, env, model, ts = build_pair(
+    jenv, params, opt, step, env, model, ts, *_ = build_pair(
         ecfg, ENV_ID, "tat-maze-lstm", 0, stack, b, T, reset_pool=p,
         remat=remat)
     reset = jax.jit(lambda k: jenv.reset_batch(k, b))

@@ -201,20 +201,21 @@ def assert_state_equal(got: EnvState, want: JaxEnvState) -> None:
 
 
 def step_noise(carry_key, num_steps: int, num_envs: int,
-               num_actions: int) -> StepNoise:
+               num_actions: int, dtype=jnp.float32) -> StepNoise:
     """The Gumbel noise a JAX train step draws from its carry key: per step
     each player's sampling noise (rl/rollout.py run_rollout,
     models/dueling.py step_both), then the tracker's at s_T
-    (rl/learner.py loss_fn)."""
+    (rl/learner.py loss_fn); float32, as the float32 program draws it
+    (also under jax_enable_x64)."""
     _, k_scan, k_next = jax.random.split(carry_key, 3)
     acts = []
     for key_t in jax.random.split(k_scan, num_steps):
         km, _ = jax.random.split(key_t)
         acts.append(np.stack([np.asarray(jax.random.gumbel(
-            k, (num_envs, num_actions))) for k in jax.random.split(km)],
+            k, (num_envs, num_actions), dtype)) for k in jax.random.split(km)],
             axis=1))
     boot = jax.random.gumbel(jax.random.fold_in(k_next, 7),
-                             (num_envs, num_actions))
+                             (num_envs, num_actions), dtype)
     return StepNoise(torch.from_numpy(np.stack(acts)),
                      torch.from_numpy(np.array(boot)))
 

@@ -12,6 +12,7 @@ from the keys that the JAX step splits, so both sample the same actions.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -55,17 +56,32 @@ def run_pair(env_id: str, network: str, optimizer: str = "Adam",
                      train_mode, aux)[0]
 
 
+class Pair(NamedTuple):
+    """Both packages' train steps at one configuration (``build_pair``)."""
+
+    jenv: object
+    params: dict            # JAX's initial params, the port's model loaded
+    opt: object             # JAX's optimizer
+    step: object            # JAX's jitted step
+    env: TrackEnv
+    model: torch.nn.Module
+    tstep: object           # the port's step
+    topt: torch.optim.Optimizer
+    tcfg: TrainConfig
+
+
 def build_pair(ecfg, env_id: str, network: str = "tat-maze-lstm",
                train_mode: int = 0, stack: int = 1, num_envs: int = B,
                num_steps: int = T, optimizer: str = "Adam",
                aux: str = "reward", bf16: bool = False, grads: bool = False,
-               reset_pool: int = None, remat: bool = False):
+               reset_pool: int = None, remat: bool = False,
+               lift=None) -> Pair:
     """Both packages' train steps of `network` on `ecfg` with an external
     pool of `reset_pool` rows (default `num_envs`), from one set of initial
-    params -> (JAX env, params, optimizer, jitted step, the port's env,
-    model, step); with `grads` JAX's optimizer state also hands back the
-    raw gradients; `remat` as ``TrainConfig.remat`` in both (the trainer
-    CLIs train with it on)."""
+    params; with `grads` JAX's optimizer state also hands back the raw
+    gradients; `remat` as ``TrainConfig.remat`` in both (the trainer CLIs
+    train with it on); `lift(jenv, model)`, if given, runs before either
+    optimizer or step is built (tests/torch_to_jax.py's float64 pair)."""
     sizes = dict(env_id=env_id, num_envs=num_envs,
                  reset_pool=reset_pool or num_envs, num_steps=num_steps,
                  train_mode=train_mode, optimizer=optimizer, remat=remat)
@@ -75,18 +91,21 @@ def build_pair(ecfg, env_id: str, network: str = "tat-maze-lstm",
     jt = JTrainConfig(**sizes)
     jm = jbuild(jn, ecfg.num_actions, ecfg.obs_shape)
     params = jm.init(jax.random.PRNGKey(0))
-    opt = j_opt_for(jn, jt, params)
-    if grads:
-        opt = capture_grads(opt)
-    step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
     env = TrackEnv(torch_cfg(ecfg), "cpu")
     tt = TrainConfig(**sizes)
     tn = dataclasses.replace(
         NetConfig.from_name(network, stack_frames=stack, aux=aux), bf16=bf16)
     model = build_model(tn, ecfg.num_actions, ecfg.obs_shape, device="cpu")
     model.load_state_dict(params_from_flax(_host(params)))
-    ts = make_train_step(model, env, tn, tt, make_optimizer_for(model, tt))
-    return jenv, params, opt, step, env, model, ts
+    if lift is not None:
+        lift(jenv, model)
+    opt = j_opt_for(jn, jt, params)
+    if grads:
+        opt = capture_grads(opt)
+    step = jax.jit(j_train_step(jm, jenv, jn, jt, opt, external_pool=True))
+    topt = make_optimizer_for(model, tt)
+    ts = make_train_step(model, env, tn, tt, topt)
+    return Pair(jenv, params, opt, step, env, model, ts, topt, tt)
 
 
 def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
@@ -97,7 +116,7 @@ def run_steps(env_id: str, network: str, modes, optimizer: str = "Adam",
     static `train_mode`, with ``NetConfig.bf16`` = `bf16` in both -> per
     step, run_pair's dict."""
     ecfg = dataclasses.replace(parse_env_id(env_id), **FAST)
-    jenv, params, opt, step, env, model, ts = build_pair(
+    jenv, params, opt, step, env, model, ts, *_ = build_pair(
         ecfg, env_id, network, train_mode, stack, optimizer=optimizer,
         aux=aux, bf16=bf16, grads=True)
     reset = jax.jit(lambda k: jenv.reset_batch(k, B))
