@@ -6,6 +6,8 @@ Port of ``active_tracking_rl_tpu/envs/distance.py``.
   sweep kernels must equal bit for bit.
 * ``distance_fields_sweep`` is the exact fast sweep (plain PyTorch, as the
   JAX one is plain XLA): no iteration cap, at most 64 rounds.
+* ``distance_field`` and ``distance_field_sweep`` are the one-goal forms
+  (JAX's own names), the goal axis of the two above.
 * ``distance_fields_backend`` picks an implementation by the JAX package's
   backend names; the tensor's device then picks the CUDA kernel or its plain
   twin (``ops/flood.py``).
@@ -25,7 +27,8 @@ from active_tracking_rl_torch.ops.flood import (INF, seed_fields,
                                                 flood_fields,
                                                 flood_fields_plain)
 
-__all__ = ["INF", "BACKENDS", "distance_fields", "distance_fields_sweep",
+__all__ = ["INF", "BACKENDS", "distance_field", "distance_fields",
+           "distance_field_sweep", "distance_fields_sweep",
            "distance_fields_backend"]
 
 #: flood_backend name -> flood_fields variant of the kernels.
@@ -44,6 +47,13 @@ def distance_fields(maze: torch.Tensor, goals: torch.Tensor,
                     iters: int) -> torch.Tensor:
     """Shortest 4-connected path lengths, INF beyond `iters` and at walls."""
     return _batched(flood_fields_plain, maze, goals, iters)
+
+
+def distance_field(maze: torch.Tensor, goal: torch.Tensor,
+                   iters: int) -> torch.Tensor:
+    """One goal: (S, S) with (2,) -> (S, S), or (N, S, S) with (N, 2) ->
+    (N, S, S); `distance_fields` with a goal axis of one."""
+    return distance_fields(maze, goal.unsqueeze(-2), iters).squeeze(-3)
 
 
 def _minplus_scan(c: torch.Tensor, k: torch.Tensor, dim: int,
@@ -80,6 +90,14 @@ def distance_fields_sweep(maze: torch.Tensor, goals: torch.Tensor,
     every field has.
     """
     return _batched(_sweep_fields, maze, goals, max_rounds)
+
+
+def distance_field_sweep(maze: torch.Tensor, goal: torch.Tensor,
+                         max_rounds: int = 64) -> torch.Tensor:
+    """One goal, as `distance_field`; `distance_fields_sweep` with a goal
+    axis of one."""
+    return distance_fields_sweep(maze, goal.unsqueeze(-2),
+                                 max_rounds).squeeze(-3)
 
 
 def _sweep_fields(maze: torch.Tensor, goals: torch.Tensor,

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from active_tracking_rl_torch.config import EnvConfig
+from active_tracking_rl_torch.config import EnvConfig, parse_env_id
 from active_tracking_rl_torch.envs import maps
 from active_tracking_rl_torch.envs.observe import observe
 from active_tracking_rl_torch.envs.opponents import (NavDraws, RamDraws,
@@ -235,3 +235,12 @@ class TrackEnv:
     @property
     def num_actions(self) -> int:
         return self.cfg.num_actions
+
+
+def make_env(env_id: str, cfg: Optional[EnvConfig] = None,
+             device="cuda") -> TrackEnv:
+    """gym.make-style factory over the Track2D ids: the env of `env_id`
+    (of `cfg` where given) on `device`."""
+    if cfg is None:
+        cfg = parse_env_id(env_id)
+    return TrackEnv(cfg, device)

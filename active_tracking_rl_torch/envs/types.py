@@ -50,6 +50,28 @@ class EnvState:
         return self.t.shape[0]
 
 
+def zeros_like_state(cfg, device="cuda") -> EnvState:
+    """A template EnvState of one row with the right shapes and dtypes:
+    an all-wall map, the rest zeros (`cfg` is an EnvConfig)."""
+    s = cfg.maze_size + 2 * cfg.pob_size
+    n = cfg.num_agents
+
+    def zeros(shape, dtype):
+        return torch.zeros((1, *shape), dtype=dtype, device=device)
+
+    return EnvState(
+        maze=torch.ones((1, s, s), dtype=torch.uint8, device=device),
+        pos=zeros((n, 2), torch.int32),
+        tape=zeros((cfg.tape_len,), torch.int8),
+        t=zeros((), torch.int32),
+        c_far=zeros((), torch.int32),
+        done=zeros((), torch.bool),
+        c_reward=zeros((n,), torch.float32),
+        c_collision=zeros((n,), torch.int32),
+        dist=zeros((), torch.float32),
+    )
+
+
 def info_dict(state: EnvState) -> Dict[str, torch.Tensor]:
     """Step info (distance, collisions, episode length)."""
     return {"distance": state.dist, "collision": state.c_collision,

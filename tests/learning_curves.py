@@ -6,7 +6,11 @@ keep: the success rate at every eval, the takeoff (the first eval with S
 and where it next climbs above 0.1, the longest stretch below 0.01 before
 the takeoff (an early collapse when it exceeds 300 iterations) and
 ``entropies0`` at chosen iterations, and with ``--bar S`` the first eval
-with a success rate of at least S. Imports only the standard library:
+with a success rate of at least S; with ``--rate`` the seconds an
+iteration of each file (one chip call each, evaluations included, from
+the train rows' ``wall``), and with ``--also KEY`` that scalar (for
+example the target's ``train/entropies1``) at the ``--at`` iterations.
+Imports only the standard library:
 
     python3 tests/learning_curves.py runs/r3-tracker-nav/*/*/metrics.jsonl \\
         --at 50 100 150 200 250 300 400
@@ -63,6 +67,26 @@ def summary(rows: List[dict]) -> dict:
                 last=ent[-1][0] if ent else None)
 
 
+def rates(spec: str) -> List[Optional[float]]:
+    """Seconds an iteration of each file of `spec`: the wall clock between
+    its first and last train rows over the iterations between them."""
+    out = []
+    for path in spec.split("+"):
+        with open(path) as f:
+            tr = [r for r in map(json.loads, f)
+                  if "train/entropies0" in r and "wall" in r]
+        out.append((tr[-1]["wall"] - tr[0]["wall"])
+                   / (tr[-1]["step"] - tr[0]["step"])
+                   if len(tr) > 1 else None)
+    return out
+
+
+def values_at(rows: List[dict], key: str, at: List[int]) -> Dict[int, float]:
+    """`key` at each of the iterations `at` that logged it."""
+    have = {r["step"]: r[key] for r in rows if key in r}
+    return {it: have[it] for it in at if it in have}
+
+
 def first_at(evals, bar: float) -> Optional[int]:
     """The first eval's iteration with S >= bar (as a share of episodes)."""
     return next((it for it, x in evals if x >= bar - S_ROUNDING), None)
@@ -92,12 +116,24 @@ def main(argv=None) -> None:
                     help="also print the first eval with S >= this")
     ap.add_argument("--steps", action="store_true",
                     help="print each eval's iteration beside its S")
+    ap.add_argument("--rate", action="store_true",
+                    help="print each file's seconds an iteration")
+    ap.add_argument("--also", action="append", default=[], metavar="KEY",
+                    help="print this scalar at the --at iterations")
     args = ap.parse_args(argv)
     for spec in args.runs:
-        s = summary(load(spec))
+        rows = load(spec)
+        s = summary(rows)
         print(line(spec, s, args.at, args.bar), flush=True)
         if args.steps:
             print("  S " + " ".join(f"{it}:{x:.2f}" for it, x in s["evals"]))
+        if args.rate:
+            print("  s/iter " + " ".join(
+                "none" if r is None else f"{r:.4f}" for r in rates(spec)))
+        for key in args.also:
+            print(f"  {key} " + " ".join(
+                f"{it}:{v:.4f}"
+                for it, v in values_at(rows, key, args.at or []).items()))
 
 
 if __name__ == "__main__":

@@ -13,13 +13,19 @@ at 1024 envs a tat-maze-lstm Nav state packs to 7.7-8.2 MiB (stack-4:
 16.0-16.6 MiB).
 ``tests/torch_to_jax.py:load_state_file`` reads a packed state;
 ``python3 tests/pack_states.py --unpack S.pt.xz DIR`` restores
-``DIR/train_state.pt`` for ``--resume DIR``. Imports the standard library
-and torch.
+``DIR/train_state.pt`` for ``--resume DIR``; ``python3
+tests/pack_states.py --players S.pt.xz DIR [NETWORK]`` writes the state's
+parameters as ``DIR/tracker-<iteration>.msgpack`` and
+``target-<iteration>.msgpack``, the trainer's checkpoint format, for
+``run/eval_matrix.py`` (NETWORK: the run's ``--network``, default
+tat-maze-lstm). Imports the standard library and torch (``--players``
+also the port).
 """
 
 from __future__ import annotations
 
 import glob
+import io
 import lzma
 import os
 import shutil
@@ -50,8 +56,30 @@ def newest_state(run_dir: str):
     return best
 
 
+def write_players(src: str, dst: str, network: str = "tat-maze-lstm"):
+    """The packed state's tracker and target in the trainer's format;
+    returns the two paths."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from active_tracking_rl_torch.config import NetConfig
+    from active_tracking_rl_torch.models.dueling import params_to_flax
+    from active_tracking_rl_torch.rl.checkpoint import save_file
+    with open(src, "rb") as f:
+        state = torch.load(io.BytesIO(lzma.decompress(f.read())),
+                           map_location="cpu", weights_only=True)["state"]
+    tree = params_to_flax(state["model"], NetConfig.from_name(network))
+    paths = []
+    for name, player in (("tracker", "player0"), ("target", "player1")):
+        paths.append(os.path.join(dst, f"{name}-{int(state['step'])}.msgpack"))
+        save_file(paths[-1], tree[player])
+    return paths
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
+    if argv[0] == "--players":
+        print("PLAYERS", *write_players(*argv[1:]))
+        return 0
     if argv[0] == "--unpack":
         src, dst = argv[1:]
         os.makedirs(dst, exist_ok=True)

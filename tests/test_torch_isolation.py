@@ -2,7 +2,9 @@
 
 In a fresh interpreter, an import hook refuses jax, jaxlib, flax, optax,
 chex, msgpack, tensorboardX and active_tracking_rl_tpu; then every module of
-active_tracking_rl_torch and chip_smoke.py are imported. The card's machine
+active_tracking_rl_torch and chip_smoke.py are imported, and the JAX env
+package's public names (``API``) are looked up in the port's modules of the
+same path. The card's machine
 has none of those packages, so an import of one would fail there.
 """
 
@@ -41,12 +43,21 @@ names = ["chip_smoke"] + [
                                           "active_tracking_rl_torch.")]
 for name in names:
     importlib.import_module(name)
+# the JAX env package's public names, each in the port's module of its path
+for mod, attr in API:
+    getattr(importlib.import_module("active_tracking_rl_torch." + mod), attr)
 print(len(names), "modules", *names)
 """
 
+API = (("envs", "make_env"), ("envs", "TrackEnv"), ("envs", "EnvState"),
+       ("envs.env", "make_env"), ("envs.types", "zeros_like_state"),
+       ("envs.distance", "distance_field"),
+       ("envs.distance", "distance_field_sweep"))
+
 
 def test_port_and_smoke_import_no_jax():
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+    res = subprocess.run([sys.executable, "-c",
+                          f"API = {API!r}\n" + SCRIPT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     out = res.stdout.split()

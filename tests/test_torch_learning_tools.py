@@ -8,7 +8,10 @@ import json
 
 import torch
 
-from tests.learning_curves import first_at, load, summary
+from tests.learning_curves import first_at, load, rates, summary, values_at
+from active_tracking_rl_torch.config import NetConfig
+from active_tracking_rl_torch.models.dueling import build_model
+from active_tracking_rl_torch.rl.checkpoint import load_params
 from tests.pack_states import main as pack_main
 from tests.same_run import compare_prefix
 
@@ -54,6 +57,29 @@ def test_bar_counts_a_float32_share_of_episodes(tmp_path):
     assert first_at(evals, 1.0) is None
 
 
+def test_rates_per_call_and_a_scalar_at_chosen_iterations(tmp_path):
+    """One run resumed once: each file's seconds an iteration from its own
+    train rows (evaluation rows and the gap between calls left out), and
+    the target's entropy where it was logged."""
+    def rows(steps, t0, per_iter):
+        out = []
+        for it in steps:
+            out.append({"step": it, "wall": t0 + per_iter * it,
+                        "train/entropies0": 0.5,
+                        "train/entropies1": 1.0 / it})
+            if it % 200 == 0:
+                out.append({"step": it, "wall": t0 + per_iter * it + 99.0,
+                            "test/success_rate": 0.7})
+        return out
+    _write(tmp_path / "a", rows(range(50, 401, 50), 0.0, 0.5))
+    _write(tmp_path / "b", rows(range(450, 801, 50), 1e4, 0.25))
+    spec = (f"{tmp_path / 'a' / 'metrics.jsonl'}+"
+            f"{tmp_path / 'b' / 'metrics.jsonl'}")
+    assert rates(spec) == [0.5, 0.25]
+    got = values_at(load(spec), "train/entropies1", [100, 425, 800])
+    assert got == {100: 1.0 / 100, 800: 1.0 / 800}
+
+
 def test_pack_states_keeps_the_highest_state_that_loads(tmp_path):
     run = tmp_path / "logs" / "Env" / "r1"
     run.mkdir(parents=True)
@@ -69,3 +95,29 @@ def test_pack_states_keeps_the_highest_state_that_loads(tmp_path):
     back = torch.load(tmp_path / "back" / "train_state.pt", weights_only=True)
     assert back["state"]["step"] == 400
     assert torch.equal(back["state"]["w"], blob["state"]["w"])
+
+
+def test_players_of_a_packed_state_load_as_the_trainer_s_checkpoints(
+        tmp_path):
+    """`pack_states.py --players` writes the state's tracker and target in
+    the format that run/eval_matrix.py loads: a fresh model that loads
+    them has the state's parameters."""
+    ncfg = NetConfig.from_name("tat-maze-lstm")
+    torch.manual_seed(0)
+    model = build_model(ncfg, 4, (13, 13), device="cpu")
+    state = {"version": 1, "state": {"step": 600,
+                                     "model": model.state_dict()}}
+    run = tmp_path / "logs" / "Env" / "r1"
+    run.mkdir(parents=True)
+    torch.save(state, run / "train_state.pt")
+    assert pack_main([str(tmp_path / "logs"), str(tmp_path / "out"), "60",
+                      "r1"]) == 0
+    packed = tmp_path / "out" / "states" / "r1.600.pt.xz"
+    assert pack_main(["--players", str(packed), str(tmp_path / "p")]) == 0
+    torch.manual_seed(1)
+    fresh = build_model(ncfg, 4, (13, 13), device="cpu")
+    load_params(fresh, load_tracker=str(tmp_path / "p/tracker-600.msgpack"),
+                load_target=str(tmp_path / "p/target-600.msgpack"))
+    want = model.state_dict()
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, want[k]), k
