@@ -1,10 +1,14 @@
 """The learning-run tools on small made-up records: tests/same_run.py's
-log-prefix comparison, tests/learning_curves.py's success-rate bar and
-tests/pack_states.py's round trip of a state."""
+log-prefix comparison, tests/learning_curves.py's success-rate bar,
+tests/pack_states.py's round trip of a state, and tests/run_slots.py's
+host lines and end-of-run bar."""
 
 from __future__ import annotations
 
 import json
+import subprocess
+import sys
+import threading
 
 import torch
 
@@ -13,6 +17,7 @@ from active_tracking_rl_torch.config import NetConfig
 from active_tracking_rl_torch.models.dueling import build_model
 from active_tracking_rl_torch.rl.checkpoint import load_params
 from tests.pack_states import main as pack_main
+from tests.run_slots import bar_held, sample_smi
 from tests.same_run import compare_prefix
 
 
@@ -121,3 +126,41 @@ def test_players_of_a_packed_state_load_as_the_trainer_s_checkpoints(
     want = model.state_dict()
     for k, v in fresh.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+def test_sampler_writes_the_host_lines_without_nvidia_smi(tmp_path):
+    """One tick of the call's sampler on a machine with no card: the host's
+    facts once (nproc, CPU model) and a minute's line with the load, the
+    trainer processes running (one of them here) and a core's speed."""
+    fake = subprocess.Popen([sys.executable, "-c", "import time; "
+                             "time.sleep(60)",
+                             "active_tracking_rl_torch.run.train"])
+    try:
+        stop = threading.Event()
+        stop.set()
+        sample_smi(tmp_path / "smi-samples.txt", stop)
+    finally:
+        fake.kill()
+        fake.wait()
+    lines = (tmp_path / "smi-samples.txt").read_text().splitlines()
+    assert len(lines) == 2, lines
+    facts, tick = (ln.split() for ln in lines)
+    assert facts[0] == "host" and facts[1].startswith("nproc=")
+    assert int(facts[1].split("=")[1]) >= 1
+    assert any(w.startswith("model=") for w in facts)
+    assert tick[0] == "host" and tick[3] == "loadavg"
+    assert len(tick[4:9]) == 5 and float(tick[4]) >= 0.0
+    trainers = next(w for w in tick if w.startswith("trainers="))
+    assert int(trainers.split("=")[1]) >= 1
+    spin = next(w for w in tick if w.startswith("spin_ms="))
+    assert float(spin.split("=")[1]) > 0.0
+
+
+def test_a_job_ends_once_its_bar_has_held(tmp_path):
+    rows = [{"step": 200 * i, "test/success_rate": s} for i, s in
+            enumerate([0.7, 0.949999988079071, 0.9, 0.97], start=1)]
+    _write(tmp_path / "r", rows)
+    metrics = str(tmp_path / "r" / "metrics.jsonl")
+    assert bar_held(metrics, 0.95, 400)
+    assert not bar_held(metrics, 0.95, 600)
+    assert not bar_held(metrics, 0.98, 0)
